@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""Smoke test of lasso_tpu_torch, the PyTorch/CUDA port, on one NVIDIA card.
+
+Run from the root of the repository with no arguments:
+
+    python3 chip_smoke.py
+
+It needs one CUDA card, builds the port's kernels from
+``lasso_tpu_torch/csrc/`` and runs in phases; any failure exits non-zero
+before the last line is printed.
+
+0. The card's name and power limit, and the build time of the kernels.
+1. Each CUDA kernel against its plain PyTorch version on the card:
+   ``fused_fista_step`` and ``fused_fista_multistep`` (S=4) in f32 and
+   bf16, plain and with restart (multistep), a per-feature threshold row,
+   nonneg and l2, at a ragged shape and at the headline shape; then K1
+   and K2 alone at the headline shape, timed beside their plain versions
+   and a PyTorch library yardstick. Tolerances: f32 z atol 1e-5 and
+   delta rtol 1e-5; bf16 z atol 5e-3 and delta rtol 5e-2 (delta is
+   summed with atomics, in an order that changes from run to run); K1's
+   residual (values of order 1, sums of K products) atol 1e-4.
+2. The main path: the headline encode (N=16384, D=512 -> K=2048,
+   alpha=0.1, lr=1/L, 200 iterations, tol=0, 'mixed' with a 37-iteration
+   f32 tail) through ``sparse_encode``, with the launch counts read just
+   before and after, its iterations/s, and gap_vs_f32_pct against an
+   all-f32 solve of the same budget and an 8x-budget f32 anchor (f64
+   objectives on the host).
+3. The single-step path: 37 iterations in f32 (two blocks of 16 and five
+   ``fused_fista_step`` calls).
+4. Serving through the CLI: ``python -m lasso_tpu_torch encode`` on 40000
+   rows in chunks of 16384 (the last one ragged), checked row for row
+   against direct ``sparse_encode`` calls.
+
+Before the last line it prints the kernels' JSON line and the card's
+name and power limit as nvidia-smi gives them; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import runpy
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from lasso_tpu_torch import headline_bench  # noqa: E402
+from lasso_tpu_torch.linalg import lipschitz_constant  # noqa: E402
+from lasso_tpu_torch.linear import sparse_encode  # noqa: E402
+from lasso_tpu_torch.ops import _cuda  # noqa: E402
+from lasso_tpu_torch.ops import fused_ista as F  # noqa: E402
+
+N, D, K = headline_bench.N, headline_bench.D, headline_bench.K
+ALPHA = headline_bench.ALPHA
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"f32": 67e12,        # FP32 outside the tensor cores
+              "bf16": 989e12}      # dense bf16 on the tensor cores
+TOL = {"f32": (1e-5, 1e-5), "bf16": (5e-3, 5e-2)}   # z atol, delta rtol
+SOURCE = "lasso_tpu_torch/csrc/fista.cu"
+REPLACES = "lasso_tpu/ops/fused_ista.py:447"
+DEV = torch.device("cuda")
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(fn, reps=20, warm=3):
+    """Mean time of ``fn`` on the card from CUDA events over ``reps``
+    calls, after ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def operands(n, d, k, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=DEV)
+    W = torch.randn(d, k, generator=g, device=DEV) / d ** 0.5
+    z = torch.randn(n, k, generator=g, device=DEV) * 0.1
+    zp = torch.randn(n, k, generator=g, device=DEV) * 0.1
+    arow = 0.02 + 0.05 * torch.rand(1, k, generator=g, device=DEV)
+    t = torch.where(torch.rand(n, 1, generator=g, device=DEV) < 0.5, 0.0,
+                    1.0 + 3.0 * torch.rand(n, 1, generator=g, device=DEV))
+    return x, W, z, zp, arow, t
+
+
+def phase_kernel_cases():
+    """Both wrappers against their plain versions on the same inputs on
+    the card: plain, and with a per-feature row, nonneg and l2 (and
+    restart, for the multistep), at a ragged and at the headline shape."""
+    lr, moms = 0.2, torch.linspace(0, 0.6, 4)
+    for n, d, k in ((200, 300, 500), (N, D, K)):
+        x, W, z, zp, arow, tv = operands(n, d, k, seed=n)
+        for kp in ("f32", "bf16"):
+            atol, rtol = TOL[kp]
+            for variant in ("plain", "restart_row_nonneg_l2"):
+                if variant == "plain":
+                    step_kw = dict(alpha=0.05)
+                    multi_kw = dict(threshs=0.05 * lr, t_vec=None)
+                else:
+                    opts = dict(nonneg=True, l2=0.3)
+                    step_kw = dict(alpha=arow, **opts)
+                    multi_kw = dict(threshs=arow * lr, t_vec=tv, **opts)
+                pairs = (
+                    ("fused_fista_step",
+                     lambda f: f(x, z, zp, W, lr, mom=0.5,
+                                 kernel_precision=kp, **step_kw),
+                     F.fused_fista_step, F.fused_fista_step_plain),
+                    ("fused_fista_multistep",
+                     lambda f: f(x, z, zp, W, lr, moms=moms, steps=4,
+                                 kernel_precision=kp, **multi_kw),
+                     F.fused_fista_multistep, F.fused_fista_multistep_plain))
+                for name, call, kernel, plain in pairs:
+                    got = call(kernel)
+                    torch.cuda.synchronize()
+                    want = call(plain)
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(got[:-1], want[:-1]))
+                    dg, dw = float(got[-1]), float(want[-1])
+                    print(f"[1] {name} {kp} {variant} {n}x{d}->{k}: "
+                          f"max|err| {err:.3e} (atol {atol:g}), delta "
+                          f"{dg:.8g} vs {dw:.8g} (rtol {rtol:g})")
+                    check(err <= atol and abs(dg - dw) <= rtol * abs(dw),
+                          f"{name} {kp} {variant} at {n}x{d}->{k}")
+    print("[1] launch counts:", json.dumps(_cuda.launch_counts()))
+
+
+def phase_kernel_timing():
+    """K1 and K2 alone at the headline shapes: error against the plain
+    version, time, the plain version's time, a library yardstick, and the
+    bound from shapes."""
+    x, W, z, zp, _, _ = operands(N, D, K, seed=1)
+    scal = torch.tensor([0.2, 0.002, 0.5, 1.0], device=DEV)
+    r_out = torch.empty(N, D, device=DEV)
+    rows = []
+    for kp in ("bf16", "f32"):
+        lib = torch.bfloat16 if kp == "bf16" else torch.float32
+
+        def lib_resid():
+            y = z + 0.5 * (z - zp)
+            return torch.matmul(y.to(lib), W.to(lib).T).float() - x
+
+        r = F.fista_resid(x, z, zp, W, scal, kernel_precision=kp)
+        torch.cuda.synchronize()
+        err1 = float((r - F.fista_resid_plain(x, z, zp, W, scal,
+                                              kernel_precision=kp)
+                      ).abs().max())
+        z1, _ = F.fista_grad_prox(r, z, zp, W, scal, kernel_precision=kp)
+        torch.cuda.synchronize()
+        z1p, _, _ = F.fista_grad_prox_plain(r, z, zp, W, scal,
+                                            kernel_precision=kp)
+        err2 = float((z1 - z1p).abs().max())
+        check(err1 <= 1e-4 and err2 <= TOL[kp][0],
+              f"K1/K2 {kp} against plain at the headline shape")
+
+        def lib_grad_prox():
+            y = z + 0.5 * (z - zp)
+            g = torch.matmul(r.to(lib), W.to(lib)).float()
+            return torch.nn.functional.softshrink(y - 0.2 * g, 0.002)
+
+        nbytes1 = 4 * (2 * N * K + 2 * N * D + D * K)
+        nbytes2 = 4 * (3 * N * K + N * D + D * K + 1)
+        flops = 2 * N * K * D
+        for name, err, nbytes, kern, plain, librar in (
+                (f"fista_resid_{kp}", err1, nbytes1,
+                 lambda: F.fista_resid(x, z, zp, W, scal,
+                                       kernel_precision=kp, out=r_out),
+                 lambda: F.fista_resid_plain(x, z, zp, W, scal,
+                                             kernel_precision=kp),
+                 lib_resid),
+                (f"fista_grad_prox_{kp}", err2, nbytes2,
+                 lambda: F.fista_grad_prox(r, z, zp, W, scal,
+                                           kernel_precision=kp),
+                 lambda: F.fista_grad_prox_plain(r, z, zp, W, scal,
+                                                 kernel_precision=kp),
+                 lib_grad_prox)):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[kp] * 1e3
+            rows.append({
+                "name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES, "launches": None,
+                "max_abs_err": err, "ms": cuda_ms(kern),
+                "plain_ms": cuda_ms(plain),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": cuda_ms(librar)})
+            print(f"[1] {name}: {json.dumps(rows[-1])}")
+    return rows
+
+
+def headline_problem():
+    xs, W = headline_bench.make_problem()
+    return xs[1], W
+
+
+def phase_headline(x_np, W_np):
+    """The main path, once, with the counts read around it."""
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    lr = float(1.0 / lipschitz_constant(W))
+    kw = dict(algorithm="ista", lr=lr, maxiter=200, tol=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    z, n_iter = sparse_encode(x, W, ALPHA, kernel_precision="mixed",
+                              mixed_tail_iters=37, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    print("[2] headline launch counts:", json.dumps(counts))
+    print(f"[2] peak device memory of the solve above its inputs: "
+          f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB")
+    check(n_iter == 200, f"n_iter {n_iter} != 200")
+    want = {"fused_fista_multistep": 9, "fused_fista_step": 0,
+            "fista_resid_bf16": 163, "fista_grad_prox_bf16": 163,
+            "fista_resid_f32": 37, "fista_grad_prox_f32": 37}
+    for key, v in want.items():
+        check(counts.get(key, 0) == v, f"{key}: {counts.get(key, 0)} != {v}")
+    check(tuple(z.shape) == (N, K) and bool(torch.isfinite(z).all()),
+          "headline codes finite and [N, K]")
+
+    f_m = headline_bench.objective64(x_np, W_np, z)
+    z_f = sparse_encode(x, W, ALPHA, kernel_precision="f32", **kw)
+    f_f = headline_bench.objective64(x_np, W_np, z_f)
+    z_a = sparse_encode(x, W, ALPHA, kernel_precision="f32",
+                        **{**kw, "maxiter": 1600})
+    f_a = headline_bench.objective64(x_np, W_np, z_a)
+    gap = 100.0 * (f_m - f_f) / max(f_f - f_a, 1e-30)
+    print(f"[2] headline: {200 / seconds:.2f} iterations/s "
+          f"({seconds:.4f} s for 200), objective f64 mixed {f_m:.10g}, "
+          f"all-f32 {f_f:.10g}, 1600-iteration f32 anchor {f_a:.10g}, "
+          f"gap_vs_f32_pct {gap:.4f}, sparsity "
+          f"{float((z == 0).float().mean()):.4f}")
+    check(f_a <= f_f and gap < 10.0,
+          "the mixed solve's gap-to-optimum within 10% of the f32 solve's")
+    return counts
+
+
+def phase_single_step(x_np, W_np):
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    z, n_iter = sparse_encode(x, W, ALPHA, lr=0.1, maxiter=37, tol=0.0,
+                              kernel_precision="f32", return_iters=True)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    print("[3] single-step launch counts:", json.dumps(counts))
+    check(n_iter == 37, f"n_iter {n_iter} != 37")
+    for key, v in {"fused_fista_multistep": 2, "fused_fista_step": 5,
+                   "fista_resid_f32": 37, "fista_grad_prox_f32": 37}.items():
+        check(counts.get(key, 0) == v, f"{key}: {counts.get(key, 0)} != {v}")
+    check(bool(torch.isfinite(z).all()), "single-step codes finite")
+
+
+def phase_cli():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((40000, D)).astype(np.float32)
+    W = (rng.standard_normal((D, K)) / np.sqrt(D)).astype(np.float32)
+    solver = {"maxiter": 100, "tol": 0.0}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("X.npy", "W.npy", "Z.npy")]
+        np.save(paths[0], x)
+        np.save(paths[1], W)
+        argv = sys.argv
+        sys.argv = ["lasso_tpu_torch", "encode", paths[0], paths[1], "-o",
+                    paths[2], "--alpha", str(ALPHA), "--chunk-size", "16384",
+                    "--solver-args", json.dumps(solver)]
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        runpy.run_module("lasso_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        sys.argv = argv
+        z = np.load(paths[2])
+    print("[4] CLI launch counts:", json.dumps(counts))
+    # 3 chunks x 100 iterations (S=25): 4 blocks of 25 f32 steps each
+    for key, v in {"fused_fista_multistep": 12, "fista_resid_f32": 300,
+                   "fista_grad_prox_f32": 300}.items():
+        check(counts.get(key, 0) == v, f"{key}: {counts.get(key, 0)} != {v}")
+    Wd = torch.from_numpy(W).to(DEV)
+    for lo, hi in ((0, 16384), (32768, 40000)):
+        direct = sparse_encode(torch.from_numpy(x[lo:hi]).to(DEV), Wd,
+                               ALPHA, **solver).cpu().numpy()
+        err = float(np.abs(z[lo:hi] - direct).max())
+        print(f"[4] rows {lo}:{hi} against a direct sparse_encode: "
+              f"max|err| {err:.3e}")
+        check(err <= 1e-5, f"CLI rows {lo}:{hi} match a direct encode")
+    check(z.shape == (40000, K) and np.isfinite(z).all(), "CLI codes")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"[0] card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    logs = _cuda.build(["fista"], ptxas_verbose=True)
+    print(f"[0] kernels built in {time.perf_counter() - t0:.2f} s")
+    for line in "".join(logs.values()).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[0] ptxas: {line.strip()}")
+
+    phase_kernel_cases()
+    rows = phase_kernel_timing()
+    x_np, W_np = headline_problem()
+    counts = phase_headline(x_np, W_np)
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    phase_single_step(x_np, W_np)
+    phase_cli()
+
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

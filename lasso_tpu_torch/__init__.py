@@ -1,0 +1,18 @@
+"""lasso_tpu_torch: the PyTorch and CUDA port of the JAX package.
+
+A second package beside the JAX package, with the same module paths,
+public names, arguments and return conventions. It imports ``torch``
+and never ``jax`` or anything of the JAX package. Plain tensor code is
+PyTorch; every TPU kernel on a ported path is a hand-written CUDA kernel
+for Hopper under ``csrc/``, built by ``nvcc`` at its first use. Tensor
+functions run on the device of their inputs; the command line and the
+bench take ``--device`` (default ``cuda``).
+"""
+
+from lasso_tpu_torch import config, linalg, linear, ops, utils
+from lasso_tpu_torch.linear import initialize_code, sparse_encode
+
+__version__ = "0.1.0"
+
+__all__ = ["config", "linalg", "linear", "ops", "utils", "sparse_encode",
+           "initialize_code"]

@@ -1,0 +1,109 @@
+"""Chunked encoding: stream batches larger than device memory.
+
+Counterpart of the JAX package's ``utils/chunked.py``, dense output. Per-sample
+solves are independent, so a big batch streams through the device in
+fixed-size chunks and the codes are gathered into host memory. Chunk
+i+1 is dispatched before chunk i is copied back to the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lasso_tpu_torch.utils.convert import resolve_device
+
+
+def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
+                   out=None, output="dense", csr_eps=0.0, screen=False,
+                   screen_kwargs=None, device=None, **kwargs):
+    """Encode an arbitrarily large batch in fixed-size chunks.
+
+    x: [N, D] on the host (numpy or array-like, e.g. a memmap), weight:
+    [D, K] (numpy or tensor). The chunks are solved on ``device``:
+    weight's device when weight is a tensor and ``device`` is None, else
+    ``device`` (default ``'cuda'``, which raises when there is no card).
+    Returns a host numpy array [N, K] in x's dtype, or fills ``out``
+    (any preallocated array-like).
+
+    The last chunk is zero-padded to ``chunk_size`` so every chunk has the
+    same shape; padding rows solve the zero problem and are discarded. A
+    per-sample alpha is sliced per chunk (padding rows get alpha 1); a
+    per-feature ``[1, K]`` row passes to every chunk unchanged.
+
+    ``output='csr'`` (``csr_eps``), ``screen=True`` (``screen_kwargs``)
+    and ``algorithm='ista_conv2d'`` are not ported yet and raise.
+    """
+    from lasso_tpu_torch.linear.sparse_encode import sparse_encode
+
+    if output not in ("dense", "csr"):
+        raise ValueError(f"output must be 'dense' or 'csr', got {output!r}")
+    if output == "csr":
+        raise NotImplementedError(
+            "output='csr' needs the native CSR packer, which is not ported "
+            "yet (ROADMAP A item 13)")
+    if screen:
+        raise NotImplementedError(
+            "screen=True needs gap-safe screening, which is not ported yet "
+            "(ROADMAP A item 8)")
+    if algorithm == "ista_conv2d":
+        raise NotImplementedError(
+            "algorithm='ista_conv2d' needs the conv2d slice, which is not "
+            "ported yet (ROADMAP A item 11)")
+    if device is None:
+        device = weight.device if torch.is_tensor(weight) else "cuda"
+    device = resolve_device(device)
+    weight = torch.as_tensor(weight, dtype=torch.float32).to(device)
+    N = x.shape[0]
+    # codes follow x's dtype (sparse_encode initializes z0 as x.dtype)
+    out_dtype = np.asarray(x[:0]).dtype
+    if out is None:
+        out = np.empty((N, weight.shape[1]), dtype=out_dtype)
+    if N == 0:
+        return out
+    chunk_size = min(chunk_size, N)
+
+    a_arr = np.asarray(alpha)
+    per_feature = (a_arr.ndim == 2 and a_arr.shape[0] == 1
+                   and a_arr.shape[1] != 1)
+    vec_alpha = a_arr.ndim >= 1 and not per_feature
+    if vec_alpha:
+        if a_arr.shape[0] != N:
+            raise ValueError(f"per-sample alpha must have shape ({N},), "
+                             f"got {a_arr.shape}")
+        if a_arr.ndim == 2:
+            a_arr = a_arr[:, 0]
+
+    def dispatch(start):
+        stop = min(start + chunk_size, N)
+        xb = np.asarray(x[start:stop])
+        if stop - start < chunk_size:   # pad the tail chunk
+            pad = np.zeros((chunk_size - (stop - start),) + x.shape[1:],
+                           dtype=xb.dtype)
+            xb = np.concatenate([xb, pad], axis=0)
+        ab = alpha
+        if vec_alpha:
+            ab = a_arr[start:stop].astype(np.float32)
+            if stop - start < chunk_size:
+                # padding rows solve a zero problem; any positive penalty
+                # keeps their codes exactly zero
+                ab = np.concatenate(
+                    [ab, np.ones(chunk_size - (stop - start), np.float32)])
+            ab = torch.from_numpy(ab).to(device)
+        xb = torch.from_numpy(np.ascontiguousarray(xb)).to(device)
+        zb = sparse_encode(xb, weight, alpha=ab, algorithm=algorithm,
+                           **kwargs)
+        return (zb[0] if isinstance(zb, tuple) else zb), start, stop
+
+    def land(zb, start, stop):
+        out[start:stop] = zb[: stop - start].cpu().numpy()
+
+    # one-deep pipeline: dispatch chunk i+1 before copying chunk i back
+    pending = None
+    for start in range(0, N, chunk_size):
+        nxt = dispatch(start)
+        if pending is not None:
+            land(*pending)
+        pending = nxt
+    land(*pending)
+    return out

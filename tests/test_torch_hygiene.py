@@ -1,0 +1,83 @@
+"""lasso_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, its kernel wrappers never fall back to the plain versions, and
+chip_smoke.py imports neither either."""
+
+import ast
+import importlib
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+from lasso_tpu_torch.ops import _cuda
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "lasso_tpu_torch"
+FORBIDDEN = re.compile(r"import jax|\blasso_tpu\b(?!_torch)")
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def test_import_leaves_jax_out():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lasso_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_name_neither_jax_nor_the_jax_package():
+    files = [p for p in PORT.rglob("*")
+             if p.suffix in (".py", ".cu", ".cuh")]
+    assert any(p.suffix == ".cu" for p in files)
+    hits = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
+            for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if FORBIDDEN.search(line)]
+    assert not hits, hits
+
+
+def test_failed_library_load_raises(monkeypatch):
+    """With the loader patched to fail, every CUDA launch entry raises;
+    none returns the plain version, and the kernel modules hold no
+    try/except that could turn a failure into one."""
+    def fail(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(_cuda, "load", fail)
+    fused = importlib.import_module("lasso_tpu_torch.ops.fused_ista")
+    kernels = [*fused.FISTA_RESID.values(), *fused.FISTA_GRAD_PROX.values()]
+    for k in kernels:
+        monkeypatch.setattr(k, "_fn", None)
+        before = k.launches
+        with pytest.raises(RuntimeError, match="cannot build"):
+            k(*([0] * len(k.argtypes)))
+        assert k.launches == before
+    for mod in (fused, _cuda):
+        tree = ast.parse(pathlib.Path(mod.__file__).read_text())
+        assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))
+
+
+def test_chip_smoke_imports_neither():
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "lasso_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "lasso_tpu"}, names
