@@ -30,6 +30,27 @@ before the last line is printed.
 4. Serving through the CLI: ``python -m lasso_tpu_torch encode`` on 40000
    rows in chunks of 16384 (the last one ragged), checked row for row
    against direct ``sparse_encode`` calls.
+5. The coordinate-descent kernels against their plain versions on the
+   card, at 200x(256->384) and at 16384x(512->2048): ``fused_cd_steps``
+   (8 steps) in f32 and bf16, plain and with a per-feature row, nonneg,
+   l2 and rows inactive on entry (b and z atol 1e-6, the active mask
+   equal); ``fused_cd_mod_sweep`` with converged rows and a zero atom (z
+   and R atol 1e-4 after one sweep, zmax and dzmax rtol 1e-5). Then both
+   alone at the headline shape, timed beside their plain versions.
+6. Training through the CLI at the training width (N=16384, D=256 ->
+   K=1024, alpha=0.1; signals drawn from a sparse model over a random
+   dictionary): ``python -m lasso_tpu_torch train --steps 3
+   --solver-args '{"algorithm": "cd"}'``, 3 E-steps of 12 fused blocks of
+   8 greedy steps (36 ``cd_steps`` launches unless every row of an E-step
+   freezes first) and 4 unfused steps each, with the sequential M-step.
+   Checks: losses non-increasing, unit atoms, finite codes; EM steps/s and
+   the E-step and M-step times of one step; one EM step with
+   ``use_pallas=False`` on the card (losses rtol 1e-4).
+7. Cyclic CD: ``dict_learning(algorithm='cd-mod', max_iter=20, tol=1e-4,
+   dict_update='block')`` for 2 steps at the training width, then one
+   ``coord_descent_mod`` at 16384x(512->2048) (sweep launches equal to
+   ``n_iter``, finite gaps, sweeps/s), held against ``use_pallas=False``
+   at ``max_iter=5`` (z atol 1e-4, gap within 1e-4 relative above 1).
 
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -38,6 +59,7 @@ name and power limit as nvidia-smi gives them; the last line is
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import runpy
@@ -54,8 +76,11 @@ sys.path.insert(0, ROOT)
 
 from lasso_tpu_torch import headline_bench  # noqa: E402
 from lasso_tpu_torch.linalg import lipschitz_constant  # noqa: E402
+from lasso_tpu_torch import linear  # noqa: E402
 from lasso_tpu_torch.linear import sparse_encode  # noqa: E402
+from lasso_tpu_torch.linear.solvers import coord_descent_mod  # noqa: E402
 from lasso_tpu_torch.ops import _cuda  # noqa: E402
+from lasso_tpu_torch.ops import fused_cd as C  # noqa: E402
 from lasso_tpu_torch.ops import fused_ista as F  # noqa: E402
 
 N, D, K = headline_bench.N, headline_bench.D, headline_bench.K
@@ -66,7 +91,12 @@ PEAK_FLOPS = {"f32": 67e12,        # FP32 outside the tensor cores
 TOL = {"f32": (1e-5, 1e-5), "bf16": (5e-3, 5e-2)}   # z atol, delta rtol
 SOURCE = "lasso_tpu_torch/csrc/fista.cu"
 REPLACES = "lasso_tpu/ops/fused_ista.py:447"
+CD_SOURCE = "lasso_tpu_torch/csrc/cd.cu"
+CD_REPLACES = {"cd_steps": "lasso_tpu/ops/fused_cd.py:157",
+               "cd_mod_sweep": "lasso_tpu/ops/fused_cd.py:317"}
+TRAIN_N, TRAIN_D, TRAIN_K = 16384, 256, 1024   # the training width
 DEV = torch.device("cuda")
+DL = importlib.import_module("lasso_tpu_torch.linear.dict_learning")
 
 
 def check(ok, what):
@@ -94,6 +124,19 @@ def cuda_ms(fn, reps=20, warm=3):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def kernel_seconds(fn):
+    """Seconds of CUDA kernel time of one call of ``fn``, from
+    torch.profiler (0.0 when the profiler records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
 
 
 def operands(n, d, k, seed):
@@ -316,6 +359,279 @@ def phase_cli():
     check(z.shape == (40000, K) and np.isfinite(z).all(), "CLI codes")
 
 
+def cd_operands(n, d, k, seed):
+    """Unit atoms with one zero atom, S, b = x W, zero codes, an active
+    mask with every 7th row inactive, a per-feature row, and for the sweep
+    sparse warm codes, their residual and every 5th row converged."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=DEV)
+    W = torch.randn(d, k, generator=g, device=DEV)
+    W = W / W.norm(dim=0)
+    W[:, 5] = 0.0
+    S = torch.eye(k, device=DEV) - W.T @ W
+    act = torch.ones(n, 1, device=DEV)
+    act[::7] = 0.0
+    arow = 0.05 + 0.1 * torch.rand(1, k, generator=g, device=DEV)
+    z0 = torch.randn(n, k, generator=g, device=DEV) * (
+        torch.rand(n, k, generator=g, device=DEV) < 0.05)
+    conv = torch.zeros(n, dtype=torch.bool, device=DEV)
+    conv[::5] = True
+    return dict(x=x, W=W, S=S, b=x @ W, z=torch.zeros(n, k, device=DEV),
+                act=act, arow=arow, z0=z0, R=x - z0 @ W.T, conv=conv,
+                nrm=(W * W).sum(0))
+
+
+def phase_cd_kernels():
+    """Both CD wrappers against their plain versions on the same inputs,
+    then each alone at the headline shape: time, plain time, bound."""
+    rows = {}
+    for n, d, k in ((200, 256, 384), (N, D, K)):
+        o = cd_operands(n, d, k, seed=n)
+        for kp in ("f32", "bf16"):
+            for variant, kw in (("plain", dict(alpha=0.2)),
+                                ("row_nonneg_l2_inactive",
+                                 dict(alpha=o["arow"], nonneg=True, l2=0.3))):
+                act = o["act"] if variant != "plain" else torch.ones_like(
+                    o["act"])
+                args = (o["b"], o["z"], act, o["S"])
+                got = C.fused_cd_steps(*args, tol_k=0.05, steps=8,
+                                       kernel_precision=kp, **kw)
+                torch.cuda.synchronize()
+                want = C.fused_cd_steps_plain(*args, tol_k=0.05, steps=8,
+                                              kernel_precision=kp, **kw)
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got[:2], want[:2]))
+                same = bool(torch.equal(got[2], want[2]))
+                print(f"[5] cd_steps {kp} {variant} {n}x{d}->{k}: max|err| "
+                      f"{err:.3e} (atol 1e-6), active equal {same}, "
+                      f"{int(got[2].sum())}/{n} rows active after 8 steps")
+                check(err <= 1e-6 and same,
+                      f"cd_steps {kp} {variant} at {n}x{d}->{k}")
+        sweep_args = (o["z0"], o["R"], o["conv"], o["W"], o["nrm"], 0.1)
+        got = C.fused_cd_mod_sweep(*sweep_args, l2=0.2)
+        torch.cuda.synchronize()
+        want = C.fused_cd_mod_sweep_plain(*sweep_args, l2=0.2)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got[:2], want[:2]))
+        rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                  for a, b in zip(got[2:], want[2:]))
+        print(f"[5] cd_mod_sweep {n}x{d}->{k}: z/R max|err| {err:.3e} "
+              f"(atol 1e-4), zmax/dzmax max rel err {rel:.3e} (rtol 1e-5)")
+        check(err <= 1e-4 and rel <= 1e-5, f"cd_mod_sweep at {n}x{d}->{k}")
+
+    # alone at the headline shape; all rows active
+    o = cd_operands(N, D, K, seed=1)
+    ones = torch.ones_like(o["act"])
+    none = torch.zeros_like(o["conv"])
+    n_atoms = int((o["nrm"] != 0).sum())
+    for kp in ("f32", "bf16"):
+        step_args = (o["b"], o["z"], ones, o["S"], 0.2, 0.0)
+        got = C.fused_cd_steps(*step_args, steps=8, kernel_precision=kp)
+        torch.cuda.synchronize()
+        want = C.fused_cd_steps_plain(*step_args, steps=8,
+                                      kernel_precision=kp)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got[:2], want[:2]))
+        check(err <= 1e-6, f"cd_steps {kp} at the headline shape")
+        # bytes: b and z in and out, the mask in and out, S once; the
+        # operations (about 7 per entry and step) take 0.03 ms
+        nbytes = 4 * (4 * N * K + 2 * N) + (4 if kp == "f32" else 2) * K * K
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 8 * N * K * 7 / PEAK_FLOPS["f32"] * 1e3
+        rows[f"cd_steps_{kp}"] = {
+            "name": f"cd_steps_{kp}", "route": "cuda", "source": CD_SOURCE,
+            "replaces": CD_REPLACES["cd_steps"], "launches": None,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: C.fused_cd_steps(
+                *step_args, steps=8, kernel_precision=kp)),
+            "plain_ms": cuda_ms(lambda: C.fused_cd_steps_plain(
+                *step_args, steps=8, kernel_precision=kp), reps=5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+        print(f"[5] {json.dumps(rows[f'cd_steps_{kp}'])} (8 steps a launch; "
+              f"no PyTorch call computes a greedy CD step: library null)")
+    sweep_args = (o["z0"], o["R"], none, o["W"], o["nrm"], 0.1)
+    got = C.fused_cd_mod_sweep(*sweep_args)
+    torch.cuda.synchronize()
+    want = C.fused_cd_mod_sweep_plain(*sweep_args)
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    check(err <= 1e-4, "cd_mod_sweep at the headline shape")
+    # operations: a dot product and a rank-1 update, 4 D, per row and
+    # nonzero atom; bytes: z and R in and out, W once
+    t_ops = 4 * N * n_atoms * D / PEAK_FLOPS["f32"] * 1e3
+    t_bytes = 4 * (2 * N * K + 2 * N * D + K * D + K + 3 * N) \
+        / HBM_BYTES_PER_S * 1e3
+    rows["cd_mod_sweep"] = {
+        "name": "cd_mod_sweep", "route": "cuda", "source": CD_SOURCE,
+        "replaces": CD_REPLACES["cd_mod_sweep"], "launches": None,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: C.fused_cd_mod_sweep(*sweep_args), reps=10),
+        "plain_ms": cuda_ms(lambda: C.fused_cd_mod_sweep_plain(*sweep_args),
+                            reps=1, warm=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+    print(f"[5] {json.dumps(rows['cd_mod_sweep'])} (one sweep; no PyTorch "
+          f"call computes a cyclic CD sweep: library null)")
+    return rows
+
+
+def training_data():
+    """Signals with a dictionary to learn: X = Z0 W0^T + 0.1 noise, W0
+    [256, 1024] unit atoms, Z0 with 2% nonzeros. (On white noise there is
+    nothing to learn: with a 100-step greedy E-step from zero the loss
+    then rises from step to step, in the JAX package as in the port.)"""
+    rng = np.random.default_rng(2)
+    W0 = rng.standard_normal((TRAIN_D, TRAIN_K))
+    W0 /= np.linalg.norm(W0, axis=0)
+    Z0 = rng.standard_normal((TRAIN_N, TRAIN_K)) * (
+        rng.random((TRAIN_N, TRAIN_K)) < 0.02)
+    X = Z0 @ W0.T + 0.1 * rng.standard_normal((TRAIN_N, TRAIN_D))
+    return X.astype(np.float32)
+
+
+def phase_train_cli(X_np):
+    """The training path through the CLI, with dict_learning wrapped to
+    keep its losses; then the E- and M-step times of one step, and one EM
+    step on the plain path."""
+    seen = {}
+    real = linear.dict_learning
+
+    def keep(*a, **kw):
+        seen["W"], seen["losses"] = real(*a, **kw)
+        return seen["W"], seen["losses"]
+
+    solver = {"algorithm": "cd"}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("X.npy", "W.npy")]
+        np.save(paths[0], X_np)
+        argv = sys.argv
+        sys.argv = ["lasso_tpu_torch", "train", paths[0], "--atoms",
+                    str(TRAIN_K), "--alpha", "0.1", "--steps", "3", "-o",
+                    paths[1], "--solver-args", json.dumps(solver)]
+        linear.dict_learning = keep
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        runpy.run_module("lasso_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        linear.dict_learning = real
+        sys.argv = argv
+        W_saved = np.load(paths[1])
+    losses = seen["losses"].cpu().numpy()
+    print("[6] train launch counts:", json.dumps(counts))
+    print(f"[6] train: 3 EM steps in {seconds:.3f} s through the CLI "
+          f"({3 / seconds:.3f} EM steps/s, data load and init included); "
+          f"losses {losses.tolist()}")
+    launches = counts.get("cd_steps_f32", 0)
+    if launches != 36:
+        print(f"[6] {launches} cd_steps launches, not 36: every row of an "
+              f"E-step froze before its budget")
+    check(0 < launches <= 36 and counts.get("cd_steps_bf16", 0) == 0,
+          f"cd_steps launches {launches}")
+    check(bool(np.all(np.diff(losses) <= 0)), "losses non-increasing")
+    check(np.allclose(np.linalg.norm(W_saved, axis=0), 1.0, atol=1e-5),
+          "unit atoms")
+
+    # E-step and M-step of one more step on the trained dictionary: wall
+    # time, then the card's kernel time under the profiler
+    X = torch.from_numpy(X_np).to(DEV)
+    W = torch.from_numpy(W_saved).to(DEV)
+    kw = dict(algorithm="cd", maxiter=100, tol=0.0)
+    atoms = torch.randn(TRAIN_K, TRAIN_D, device=DEV)
+    e_step = lambda: sparse_encode(X, W, 0.1, **kw)  # noqa: E731
+    m_step = lambda: DL._update_dict(W, X, Z, atoms)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Z = e_step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m_step()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(bool(torch.isfinite(Z).all()), "training codes finite")
+    busy = [kernel_seconds(f) for f in (e_step, m_step)]
+    print(f"[6] one EM step: E-step (greedy CD, 100 steps) {t1 - t0:.4f} s "
+          f"wall, {busy[0]:.4f} s of kernels; M-step (sequential, {TRAIN_K} "
+          f"atoms) {t2 - t1:.4f} s wall, {busy[1]:.4f} s of kernels")
+    b = X @ W
+    step_args = (b, torch.zeros_like(b), torch.ones(TRAIN_N, 1, device=DEV),
+                 torch.eye(TRAIN_K, device=DEV) - W.T @ W, 0.1, 0.0)
+    ms = cuda_ms(lambda: C.fused_cd_steps(*step_args))
+    print(f"[6] cd_steps_f32 at {TRAIN_N}x{TRAIN_K}, 8 steps from zero: "
+          f"{ms:.4f} ms a launch")
+
+    # one EM step on the plain path against the kernel path
+    out = {}
+    for use_pallas in ("auto", False):
+        _, out[use_pallas] = DL.dict_learning(
+            X, TRAIN_K, alpha=0.1, steps=1, use_pallas=use_pallas,
+            generator=torch.Generator(device=DEV).manual_seed(0), **kw)
+    la, lp = float(out["auto"][0]), float(out[False][0])
+    print(f"[6] one EM step, loss with the kernel {la:.8g}, plain "
+          f"{lp:.8g} (rtol 1e-4)")
+    check(abs(la - lp) <= 1e-4 * abs(lp), "EM loss kernel vs plain")
+    return counts
+
+
+def phase_cd_mod(X_np, x_np, W_np):
+    """Cyclic CD: training at the training width, then one solve at the
+    headline width held against the plain path."""
+    X = torch.from_numpy(X_np).to(DEV)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, losses = DL.dict_learning(
+        X, TRAIN_K, alpha=0.1, steps=2, algorithm="cd-mod", max_iter=20,
+        tol=1e-4, dict_update="block",
+        generator=torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    print("[7] cd-mod training launch counts:", json.dumps(counts))
+    print(f"[7] cd-mod training: 2 EM steps in {seconds:.3f} s, losses "
+          f"{losses.cpu().numpy().tolist()}")
+    check(0 < counts.get("cd_mod_sweep", 0) <= 40
+          and bool(torch.isfinite(losses).all()), "cd-mod training")
+
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    before = C.CD_MOD_SWEEP.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, gap, n_iter = coord_descent_mod(x, W, alpha=0.1, max_iter=20,
+                                       tol=1e-4, return_iters=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sweeps = C.CD_MOD_SWEEP.launches - before
+    print(f"[7] coord_descent_mod {N}x{D}->{K}: {n_iter} sweeps, "
+          f"{sweeps} launches, {n_iter / seconds:.3f} sweeps/s "
+          f"({seconds:.3f} s, gap checks included), max gap "
+          f"{float(gap.max()):.4g}")
+    check(sweeps == n_iter and bool(torch.isfinite(gap).all())
+          and bool(torch.isfinite(z).all()), "cd-mod at the headline")
+
+    out = {}
+    for use_pallas in ("auto", False):
+        out[use_pallas] = coord_descent_mod(
+            x, W, alpha=0.1, max_iter=5, tol=1e-4, use_pallas=use_pallas,
+            return_iters=True)
+    zerr = float((out["auto"][0] - out[False][0]).abs().max())
+    gerr = float(((out["auto"][1] - out[False][1]).abs()
+                  / out[False][1].abs().clamp_min(1.0)).max())
+    print(f"[7] 5 sweeps with the kernel against the plain path: z "
+          f"max|err| {zerr:.3e} (atol 1e-4), gap max err {gerr:.3e} "
+          f"(relative above 1, 1e-4), n_iter {out['auto'][2]} / "
+          f"{out[False][2]}")
+    check(zerr <= 1e-4 and gerr <= 1e-4
+          and out["auto"][2] == out[False][2], "cd-mod kernel vs plain")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -324,7 +640,7 @@ def main():
     print(f"[0] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = _cuda.build(["fista"], ptxas_verbose=True)
+    logs = _cuda.build(["fista", "cd"], ptxas_verbose=True)
     print(f"[0] kernels built in {time.perf_counter() - t0:.2f} s")
     for line in "".join(logs.values()).splitlines():
         if "registers" in line or "spill" in line:
@@ -338,6 +654,14 @@ def main():
         row["launches"] = counts[row["name"]]
     phase_single_step(x_np, W_np)
     phase_cli()
+    cd_rows = phase_cd_kernels()
+    X_train = training_data()
+    counts = phase_train_cli(X_train)
+    rows.append({**cd_rows["cd_steps_f32"],
+                 "launches": counts["cd_steps_f32"]})
+    counts = phase_cd_mod(X_train, x_np, W_np)
+    rows.append({**cd_rows["cd_mod_sweep"],
+                 "launches": counts["cd_mod_sweep"]})
 
     print(json.dumps({"kernels": rows}))
     print(card)

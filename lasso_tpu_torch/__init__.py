@@ -10,9 +10,13 @@ bench take ``--device`` (default ``cuda``).
 """
 
 from lasso_tpu_torch import config, linalg, linear, ops, utils
-from lasso_tpu_torch.linear import initialize_code, sparse_encode
+from lasso_tpu_torch.linear import (dict_evaluate, dict_learning,
+                                    initialize_code, lasso_loss, sparse_encode,
+                                    update_dict, update_dict_block,
+                                    update_dict_ridge)
 
 __version__ = "0.1.0"
 
 __all__ = ["config", "linalg", "linear", "ops", "utils", "sparse_encode",
-           "initialize_code"]
+           "initialize_code", "dict_learning", "dict_evaluate", "lasso_loss",
+           "update_dict", "update_dict_block", "update_dict_ridge"]

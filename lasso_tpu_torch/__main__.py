@@ -1,13 +1,20 @@
-"""Command-line interface: encode / bench on .npy arrays.
+"""Command-line interface: encode / train / bench on .npy arrays.
 
 Counterpart of the JAX package's ``__main__.py``. Runs on ``--device`` (default
 ``cuda``; with no card it raises rather than carry on on the CPU).
 Examples:
 
     python -m lasso_tpu_torch encode X.npy W.npy --alpha 0.2 -o Z.npy
+    python -m lasso_tpu_torch train X.npy --atoms 256 --steps 30 -o W.npy
+    python -m lasso_tpu_torch train X.npy --atoms 1024 --alpha 0.1 \
+        --solver-args '{"algorithm": "cd"}'
     python -m lasso_tpu_torch bench
 
-``encode --csr`` and ``train`` are not ported yet and raise.
+``train`` passes ``maxiter=100, tol=0.0`` to the E-step solver unless
+``--solver-args`` sets them, as the JAX package's CLI does; so
+``{"algorithm": "cd-mod"}`` raises ``TypeError`` there as here (its
+solver takes ``max_iter``). ``encode --csr`` is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -37,8 +44,27 @@ def _cmd_encode(args):
 
 
 def _cmd_train(args):
-    raise NotImplementedError("train needs dictionary learning, which is "
-                              "not ported yet (ROADMAP A item 5)")
+    import torch
+    from lasso_tpu_torch.linear import dict_learning
+    from lasso_tpu_torch.utils import resolve_device
+
+    device = resolve_device(args.device)
+    X = torch.from_numpy(np.ascontiguousarray(
+        np.load(args.x), dtype=np.float32)).to(device)
+    solver_kw = json.loads(args.solver_args) if args.solver_args else {}
+    solver_kw.setdefault("maxiter", 100)
+    solver_kw.setdefault("tol", 0.0)
+    t0 = time.time()
+    W, losses = dict_learning(
+        X, n_components=args.atoms, alpha=args.alpha,
+        constrained=not args.unconstrained, dict_update=args.dict_update,
+        steps=args.steps,
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        **solver_kw)
+    W, losses = W.cpu().numpy(), losses.cpu().numpy()
+    np.save(args.out, W)
+    print(f"trained {args.steps} EM steps in {time.time()-t0:.2f}s -> "
+          f"{args.out}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 
 
 def _cmd_bench(args):
@@ -64,14 +90,25 @@ def main(argv=None):
                          '\'{"maxiter": 500, "tol": 1e-8}\'')
     pe.set_defaults(fn=_cmd_encode)
 
-    pt = sub.add_parser("train", help="dictionary learning (not ported yet)")
+    pt = sub.add_parser("train", help="dictionary learning on X")
     pt.add_argument("x", help="X.npy [N, D]")
+    pt.add_argument("-o", "--out", default="W.npy")
+    pt.add_argument("--atoms", type=int, required=True)
+    pt.add_argument("--alpha", type=float, default=1.0)
+    pt.add_argument("--steps", type=int, default=30)
+    pt.add_argument("--unconstrained", action="store_true")
+    pt.add_argument("--dict-update", default="sequential",
+                    choices=["sequential", "block"])
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--solver-args", default=None,
+                    help='extra dict_learning / solver kwargs as JSON, e.g. '
+                         '\'{"algorithm": "cd"}\'')
     pt.set_defaults(fn=_cmd_train)
 
     pb = sub.add_parser("bench", help="run the headline benchmark")
     pb.set_defaults(fn=_cmd_bench)
 
-    for sp in (pe, pb):
+    for sp in (pe, pt, pb):
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
 

@@ -1,8 +1,8 @@
 """Public encode API: code initialization and dispatch over solvers.
 
 Counterpart of the JAX package's ``linear/sparse_encode.py``, with the same
-algorithm names, init modes and per-algorithm init defaults. Only
-``'ista'`` is ported so far; every other known name raises
+algorithm names, init modes and per-algorithm init defaults. ``'ista'``,
+``'cd'`` and ``'cd-mod'`` are ported; every other known name raises
 ``NotImplementedError`` naming its ROADMAP item, and an unknown name
 raises ``ValueError``.
 """
@@ -31,8 +31,6 @@ _init_defaults = {
 
 # where each algorithm that is not ported yet stands in ROADMAP.md queue A
 _NOT_PORTED = {
-    "cd": "A item 6",
-    "cd-mod": "A item 6",
     "omp": "A item 7",
     "group-ista": "A item 8",
     "gpsr": "A item 9",
@@ -82,7 +80,7 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
     """Batched sparse coding: ``min_z 0.5||z W^T - x||^2 + alpha ||z||_1``.
 
     ``alpha`` may be a scalar, an ``[N]`` per-sample vector or a ``[1, K]``
-    per-feature row; ista takes all three natively, and the other
+    per-feature row; ista and cd take all three natively, and the other
     algorithms get them through the homogeneity wrappers below.
     ``generator`` seeds the ``'unif'`` init. ``return_iters=True``
     returns ``(z, n_iter)``.
@@ -149,6 +147,13 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
         z0 = initialize_code(x, weight, alpha, mode=init,
                              generator=generator)
 
-    out = solvers.ista(x, z0, weight, alpha, return_iters=return_iters,
-                       **kwargs)
-    return out
+    if algorithm == "cd-mod":
+        # (z, gap[, n_iter]) inside, z or (z, n_iter) outward
+        out = solvers.coord_descent_mod(x, weight, z0, alpha,
+                                        return_iters=return_iters, **kwargs)
+        return (out[0], out[2]) if return_iters else out[0]
+    if algorithm == "cd":
+        return solvers.coord_descent(x, weight, z0, alpha,
+                                     return_iters=return_iters, **kwargs)
+    return solvers.ista(x, z0, weight, alpha, return_iters=return_iters,
+                        **kwargs)

@@ -139,3 +139,29 @@ def reset_launch_counts():
 def ptr(t):
     """Device pointer of a tensor, or None for a missing optional one."""
     return None if t is None else t.data_ptr()
+
+
+def stream():
+    """The current CUDA stream, as the integer the C entries take."""
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_cuda(**tensors):
+    """The kernels take contiguous float32 tensors on one CUDA device
+    (None stands for a missing optional one); anything else raises."""
+    import torch
+    device = None
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

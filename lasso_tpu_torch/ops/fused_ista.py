@@ -40,7 +40,8 @@ import torch
 
 from lasso_tpu_torch.config import require_fp32_matmul
 from lasso_tpu_torch.ops import _cuda
-from lasso_tpu_torch.ops.precision import round_bf16
+from lasso_tpu_torch.ops.precision import (check_kernel_precision,
+                                           round_bf16)
 from lasso_tpu_torch.ops.shrink import soft_threshold, soft_threshold_nonneg
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -65,12 +66,6 @@ def supports_fused_step(x, z0, weight):
     K = weight.shape[1]
     return (D % 128 == 0 and K % 128 == 0 and N % 8 == 0
             and x.dtype == torch.float32)
-
-
-def _check_precision(kernel_precision):
-    if kernel_precision not in ("f32", "bf16"):
-        raise ValueError(f"kernel_precision must be 'f32' or 'bf16', got "
-                         f"{kernel_precision!r}")
 
 
 def _f32(v):
@@ -138,24 +133,6 @@ def fista_grad_prox_plain(resid, z, z_prev, weight, scal, trow=None,
     return z_next, delta, t_new
 
 
-def _check_cuda(**tensors):
-    """The kernels take contiguous float32 tensors on one CUDA device."""
-    device = None
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if device is None:
-            device = t.device
-        elif t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _check_shapes(x, z, z_prev, weight, scal, t_vec=None, trow=None,
                   out=None):
     N, D = x.shape
@@ -172,10 +149,6 @@ def _check_shapes(x, z, z_prev, weight, scal, t_vec=None, trow=None,
         raise ValueError(f"empty problem N={N}, D={D}, K={K}")
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
 def fista_resid(x, z, z_prev, weight, scal, t_vec=None,
                 kernel_precision="f32", out=None):
     """K1: ``r = y W^T - x`` with ``y = z + c (z - z_prev)``.
@@ -185,7 +158,7 @@ def fista_resid(x, z, z_prev, weight, scal, t_vec=None,
     tensor this runs :func:`fista_resid_plain`; otherwise it launches the
     kernel into ``out`` (or a new ``[N, D]`` tensor) or raises.
     """
-    _check_precision(kernel_precision)
+    check_kernel_precision(kernel_precision)
     if x.device.type == "cpu":
         return fista_resid_plain(x, z, z_prev, weight, scal, t_vec,
                                  kernel_precision)
@@ -193,8 +166,8 @@ def fista_resid(x, z, z_prev, weight, scal, t_vec=None,
     K = weight.shape[1]
     if out is None:
         out = torch.empty((N, D), dtype=torch.float32, device=x.device)
-    _check_cuda(x=x, z=z, z_prev=z_prev, weight=weight, scal=scal,
-                t_vec=t_vec, out=out)
+    _cuda.check_cuda(x=x, z=z, z_prev=z_prev, weight=weight, scal=scal,
+                     t_vec=t_vec, out=out)
     _check_shapes(x, z, z_prev, weight, scal, t_vec)
     if tuple(out.shape) != (N, D):
         raise ValueError(f"out has shape {tuple(out.shape)}, expected "
@@ -202,7 +175,7 @@ def fista_resid(x, z, z_prev, weight, scal, t_vec=None,
     FISTA_RESID[kernel_precision](
         x.data_ptr(), z.data_ptr(), z_prev.data_ptr(), weight.data_ptr(),
         scal.data_ptr(), _cuda.ptr(t_vec), out.data_ptr(), N, D, K,
-        _stream())
+        _cuda.stream())
     return out
 
 
@@ -220,7 +193,7 @@ def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
     :func:`fista_grad_prox_plain`; otherwise it launches the kernel or
     raises.
     """
-    _check_precision(kernel_precision)
+    check_kernel_precision(kernel_precision)
     if resid.device.type == "cpu":
         return _grad_prox_plain_into(resid, z, z_prev, weight, scal, trow,
                                      t_vec, nonneg, kernel_precision, out,
@@ -237,14 +210,14 @@ def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
         rdot = torch.zeros((N,), dtype=torch.float32, device=dev)
         counters = torch.zeros((-(-N // _ROW_TILE),), dtype=torch.int32,
                                device=dev)
-    _check_cuda(resid=resid, z=z, z_prev=z_prev, weight=weight, scal=scal,
-                trow=trow, t_vec=t_vec, out=out)
+    _cuda.check_cuda(resid=resid, z=z, z_prev=z_prev, weight=weight,
+                     scal=scal, trow=trow, t_vec=t_vec, out=out)
     _check_shapes(resid, z, z_prev, weight, scal, t_vec, trow, out)
     FISTA_GRAD_PROX[kernel_precision](
         resid.data_ptr(), z.data_ptr(), z_prev.data_ptr(), weight.data_ptr(),
         scal.data_ptr(), _cuda.ptr(trow), _cuda.ptr(t_vec), _cuda.ptr(rdot),
         _cuda.ptr(counters), out.data_ptr(), _cuda.ptr(delta), N, D, K,
-        int(nonneg), _stream())
+        int(nonneg), _cuda.stream())
     return out, (None if delta is None else delta.reshape(()))
 
 
@@ -287,7 +260,7 @@ def _run_steps(resid_fn, grad_prox_fn, x, z, z_prev, weight, lrs, threshs,
                moms, steps, kernel_precision, t_vec, nonneg, l2):
     """The sub-step loop of :func:`fused_fista_multistep`, over a K1 and a
     K2 function (the kernels' wrappers, or their plain versions)."""
-    _check_precision(kernel_precision)
+    check_kernel_precision(kernel_precision)
     th = _f32(threshs)
     has_row = th.ndim == 2
     scal = _scalar_table(lrs, 0.0 if has_row else th, moms, l2, steps,
@@ -326,7 +299,7 @@ def fused_fista_step(x, z, z_prev, weight, lr, alpha, mom,
     arguments ``block_n`` and ``interpret`` have no counterpart: the
     device of ``x`` picks the kernels or the plain versions.
     """
-    _check_precision(kernel_precision)
+    check_kernel_precision(kernel_precision)
     scal, trow = _step_operands(x, weight, lr, alpha, mom, l2)
     if x.is_cuda:
         _cuda.WRAPPER_CALLS["fused_fista_step"] += 1
@@ -339,7 +312,7 @@ def fused_fista_step(x, z, z_prev, weight, lr, alpha, mom,
 def fused_fista_step_plain(x, z, z_prev, weight, lr, alpha, mom,
                            kernel_precision="f32", nonneg=False, l2=0.0):
     """The plain version of :func:`fused_fista_step`, on any device."""
-    _check_precision(kernel_precision)
+    check_kernel_precision(kernel_precision)
     scal, trow = _step_operands(x, weight, lr, alpha, mom, l2)
     r = fista_resid_plain(x, z, z_prev, weight, scal[0],
                           kernel_precision=kernel_precision)

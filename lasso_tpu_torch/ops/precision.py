@@ -24,3 +24,10 @@ def split_bf16(a):
     hi = round_bf16(a)
     lo = round_bf16(a - hi)
     return hi, lo
+
+
+def check_kernel_precision(kernel_precision):
+    """The kernels' two precisions: ``'f32'`` and ``'bf16'``."""
+    if kernel_precision not in ("f32", "bf16"):
+        raise ValueError(f"kernel_precision must be 'f32' or 'bf16', got "
+                         f"{kernel_precision!r}")

@@ -1,4 +1,5 @@
-"""Carry parameters over from the JAX package, and pick the device.
+"""Carry parameters and training state over from the JAX package, and pick
+the device.
 
 The JAX package keeps its arrays as numpy on the host between calls:
 the dictionary ``weight`` is ``[D, K]`` and codes reconstruct as
@@ -25,21 +26,38 @@ def resolve_device(device):
 def from_numpy_params(params, device):
     """Turn the JAX package's numpy parameters into float32 tensors.
 
-    ``params`` maps ``'weight'`` (``[D, K]``, required) and optionally
-    ``'x'`` (``[N, D]``), ``'z0'`` (``[N, K]``) and ``'alpha'`` (a scalar,
-    an ``[N]`` or ``[N, 1]`` per-sample column, or a ``[1, K]`` / ``[K]``
-    per-feature row) to arrays. Returns a dict with the same keys of
-    contiguous float32 tensors on ``device``, after checking that the
-    shapes agree.
+    ``params`` maps names to arrays: the dictionary ``'weight'`` (``[D,
+    K]``) or the initial dictionary of a training run ``'weight0'`` (``[D,
+    K]``), at least one of them; and optionally ``'x'`` (``[N, D]``),
+    ``'z0'`` (``[N, K]``), ``'alpha'`` (a scalar, an ``[N]`` or ``[N, 1]``
+    per-sample column, or a ``[1, K]`` / ``[K]`` per-feature row), and the
+    training state: the replacement atoms of each step as the JAX package
+    draws them, ``'atoms'`` (``[steps, K, D]``, the sequential M-step) or
+    ``'atoms_block'`` (``[steps, D, K]``, the block M-step), and the online
+    statistics ``'A'`` (``[K, K]``) and ``'B'`` (``[D, K]``). Returns a
+    dict with the same keys of contiguous float32 tensors on ``device``,
+    after checking that the shapes agree.
     """
     device = resolve_device(device)
-    unknown = set(params) - {"weight", "x", "z0", "alpha"}
+    unknown = set(params) - {"weight", "weight0", "x", "z0", "alpha",
+                             "atoms", "atoms_block", "A", "B"}
     if unknown:
         raise ValueError(f"unknown parameters {sorted(unknown)}")
     arrays = {k: np.asarray(v, dtype=np.float32) for k, v in params.items()}
-    if "weight" not in arrays or arrays["weight"].ndim != 2:
-        raise ValueError("params needs a 2-D 'weight' [D, K]")
-    D, K = arrays["weight"].shape
+    dicts = [arrays[k] for k in ("weight", "weight0") if k in arrays]
+    if not dicts or any(w.ndim != 2 for w in dicts):
+        raise ValueError("params needs a 2-D 'weight' or 'weight0' [D, K]")
+    D, K = dicts[0].shape
+    want = {"weight": (D, K), "weight0": (D, K), "A": (K, K), "B": (D, K)}
+    for name, shape in want.items():
+        if name in arrays and arrays[name].shape != shape:
+            raise ValueError(f"{name} has shape {arrays[name].shape}, "
+                             f"expected {list(shape)}")
+    for name, shape in (("atoms", (K, D)), ("atoms_block", (D, K))):
+        a = arrays.get(name)
+        if a is not None and (a.ndim != 3 or a.shape[1:] != shape):
+            raise ValueError(f"{name} has shape {a.shape}, expected "
+                             f"[steps, {shape[0]}, {shape[1]}]")
     N = None
     if "x" in arrays:
         if arrays["x"].ndim != 2 or arrays["x"].shape[1] != D:
@@ -59,5 +77,6 @@ def from_numpy_params(params, device):
         if not ok:
             raise ValueError(f"alpha has shape {a.shape}: expected a "
                              f"scalar, [N], [N, 1], [1, {K}] or [{K}]")
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in arrays.items()}
+    # a read-only array (one of JAX's, say) is copied, never shared
+    return {k: torch.from_numpy(np.require(v, requirements=["C", "W"]))
+            .to(device) for k, v in arrays.items()}

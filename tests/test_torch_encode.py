@@ -70,8 +70,8 @@ def test_sparse_encode_dispatch_errors(rng):
     args = (t(x), t(W), 0.1)
     with pytest.raises(ValueError, match="unknown algorithm"):
         sparse_encode(*args, algorithm="bogus")
-    for name in ("cd", "cd-mod", "gpsr", "iter-ridge", "interior-point",
-                 "split-bregman", "own", "omp", "group-ista"):
+    for name in ("gpsr", "iter-ridge", "interior-point", "split-bregman",
+                 "own", "omp", "group-ista"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sparse_encode(*args, algorithm=name)
     with pytest.raises(NotImplementedError):   # through the row rescaling
@@ -123,7 +123,7 @@ def test_chunked_encode_options(rng):
         chunked_encode(x, W, np.ones(9, np.float32), device="cpu")
 
 
-def test_cli_encode(rng, tmp_path, capsys):
+def test_cli_encode(rng, tmp_path, capsys, monkeypatch):
     x = rng.standard_normal((40, 128)).astype(np.float32)
     W = (rng.standard_normal((128, 256)) / np.sqrt(128)).astype(np.float32)
     np.save(tmp_path / "X.npy", x)
@@ -142,8 +142,10 @@ def test_cli_encode(rng, tmp_path, capsys):
     with pytest.raises(NotImplementedError):
         cli(["encode", str(tmp_path / "X.npy"), str(tmp_path / "W.npy"),
              "--csr", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        cli(["train", str(tmp_path / "X.npy")])
+    # train runs on the card unless asked for the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli(["train", str(tmp_path / "X.npy"), "--atoms", "8"])
 
 
 def test_bench_solve_matches_jax_small():

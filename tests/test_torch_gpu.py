@@ -1,5 +1,6 @@
-"""lasso_tpu_torch on a CUDA card: the kernels against their plain
-versions, and the solver's fused path against its CPU run.
+"""lasso_tpu_torch on a CUDA card: the kernels (FISTA and coordinate
+descent) against their plain versions, and the solver's fused path
+against its CPU run.
 
 Every test here is marked ``gpu`` and skips where there is no card. This
 file imports neither JAX nor the JAX package, so that it runs on a
@@ -15,6 +16,7 @@ import torch
 
 from lasso_tpu_torch.linear.solvers import ista
 from lasso_tpu_torch.ops import _cuda
+from lasso_tpu_torch.ops import fused_cd as T_CD
 from lasso_tpu_torch.ops import fused_ista as T
 
 from _torch_port import make_problem, n, t
@@ -81,3 +83,54 @@ def test_solver_on_card_matches_cpu(kw):
     assert out["cuda"][1] == out["cpu"][1]
     np.testing.assert_allclose(n(out["cuda"][0]), n(out["cpu"][0]),
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("kp", ["f32", "bf16"])
+def test_cd_steps_kernel_matches_plain(kp):
+    """K3 against its plain version on the card, plain and with a
+    per-feature row, nonneg, l2 and rows inactive on entry: b and z atol
+    1e-6 (both round the same operations; only an FMA the plain version
+    may take otherwise could differ), the active mask equal."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    x, _, _, W = (t(a).cuda() for a in make_problem(rng, 200, 256, 384))
+    W = W / W.norm(dim=0)
+    S = torch.eye(384, device="cuda") - W.T @ W
+    b, z = x @ W, torch.zeros(200, 384, device="cuda")
+    act = torch.ones(200, 1, device="cuda")
+    act[::7] = 0.0
+    arow = t((0.05 + 0.1 * rng.random((1, 384))).astype(np.float32)).cuda()
+    before = T_CD.CD_STEPS[kp].launches
+    for kw in ({"alpha": 0.2}, {"alpha": arow, "nonneg": True, "l2": 0.3}):
+        got = T_CD.fused_cd_steps(b, z, act, S, tol_k=0.05, steps=8,
+                                  kernel_precision=kp, **kw)
+        want = T_CD.fused_cd_steps_plain(b, z, act, S, tol_k=0.05, steps=8,
+                                         kernel_precision=kp, **kw)
+        for a, c in zip(got[:2], want[:2]):
+            np.testing.assert_allclose(n(a), n(c), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(n(got[2]), n(want[2]))
+    assert T_CD.CD_STEPS[kp].launches - before == 2
+
+
+@pytest.mark.parametrize("d", [256, 1100])
+def test_cd_mod_sweep_kernel_matches_plain(d):
+    """K4 against its plain version on the card, with converged rows and
+    a zero atom, with R in registers (D=256) and in device memory
+    (D=1100): z and R atol 1e-4 (sums in another order), zmax and dzmax
+    rtol 1e-5."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    x, z, _, W = (t(a).cuda() for a in make_problem(rng, 200, d, 384))
+    W[:, 5] = 0.0
+    z = z * (torch.rand(200, 384, device="cuda") < 0.1)
+    R = x - z @ W.T
+    conv = torch.zeros(200, dtype=torch.bool, device="cuda")
+    conv[::6] = True
+    nrm = (W * W).sum(0)
+    got = T_CD.fused_cd_mod_sweep(z, R, conv, W, nrm, 0.1, l2=0.2)
+    want = T_CD.fused_cd_mod_sweep_plain(z, R, conv, W, nrm, 0.1, l2=0.2)
+    for a, c in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(n(a), n(c), rtol=0, atol=1e-4)
+    for a, c in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(n(a), n(c), rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(n(got[0])[n(conv)], n(z)[n(conv)])
