@@ -19,6 +19,12 @@
 //                       <y - z+, z+ - z>. The last block of a row tile then
 //                       updates that tile's t (threadfence reduction), so
 //                       the t-vector needs no third kernel.
+//                       Given t but no rdot buffer, K2 reads t for the
+//                       momentum and leaves it alone: the group-lasso path
+//                       (lasso_tpu_torch/ops/fused_group.py) runs it so,
+//                       with scale 1, to write v = soft(y - lr g, l1 lr),
+//                       and csrc/group.cu then applies the group shrink and
+//                       advances t.
 //
 // Both are SIMT FP32 tiled products (128x128 block tile, 8x8 outputs per
 // thread, operands staged in shared memory). In bf16 mode each operand is
@@ -34,9 +40,9 @@
 // wgmma on the tensor cores (bf16, or a bf16x3 split for f32) is what
 // would move them towards the byte bound.
 //
-// Elementwise arithmetic uses the _rn intrinsics so that the compiler does
-// not contract it into FMAs: y, the prox and the t update then round op by
-// op exactly as the plain PyTorch version does.
+// Elementwise arithmetic uses the _rn intrinsics (fista_math.cuh) so that
+// the compiler does not contract it into FMAs: y, the prox and the t
+// update then round op by op exactly as the plain PyTorch version does.
 //
 // Each C entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
@@ -45,6 +51,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "fista_math.cuh"
 
 namespace {
 
@@ -57,25 +65,6 @@ constexpr int TY = BM / TM;        // 16 thread rows
 constexpr int TX = BN / TN;        // 16 thread columns
 constexpr int THREADS = TX * TY;   // 256
 constexpr int PAD = 4;             // spreads transposed stores over banks
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// (1 + sqrt(1 + 4 t t)) / 2, the FISTA t-sequence
-__device__ __forceinline__ float t_next_of(float t) {
-  const float s = __fsqrt_rn(__fadd_rn(1.f, __fmul_rn(__fmul_rn(4.f, t), t)));
-  return __fmul_rn(__fadd_rn(1.f, s), 0.5f);
-}
-
-// per-row restart momentum (t - 1) / t_next; t is the carry t_{k-1}
-__device__ __forceinline__ float restart_coef(float t) {
-  return __fdiv_rn(__fsub_rn(t, 1.f), t_next_of(t));
-}
-
-__device__ __forceinline__ float momentum_point(float z, float zp, float c) {
-  return __fadd_rn(z, __fmul_rn(c, __fsub_rn(z, zp)));
-}
 
 // Momentum coefficient of each row of the tile: the scalar scal[2], or the
 // restart coefficient of the row's t when t is given.
@@ -235,7 +224,7 @@ __global__ void __launch_bounds__(THREADS)
         rd += __fmul_rn(__fsub_rn(y, zn), dz);
       }
     }
-    if (t != nullptr) {
+    if (rdot != nullptr) {
       // the TX threads of a row are 16 consecutive lanes of one warp
 #pragma unroll
       for (int off = TX / 2; off > 0; off >>= 1)
@@ -257,7 +246,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  if (t != nullptr) {
+  if (rdot != nullptr) {
     // The last block to finish a row tile holds the whole-row rdot and
     // advances t: t = rdot > 0 ? 1 : t_next. Every other block of the tile
     // read t (in load_coefs) before it counted itself in.
@@ -326,8 +315,9 @@ extern "C" int fista_resid_bf16(const float* x, const float* z,
 }
 
 // trow ([K], threshold row already * lr), t, rdot ([N], zero) and counters
-// ([ceil(N/128)], zero) may be null; delta ([1]) is zeroed here and may be
-// null when the caller does not need sum|z+ - z|.
+// ([ceil(N/128)], zero) may be null; t is advanced only when rdot and
+// counters are given, and only read for the momentum otherwise. delta ([1])
+// is zeroed here and may be null when the caller does not need sum|z+ - z|.
 extern "C" int fista_grad_prox_f32(const float* r, const float* z,
                                    const float* zp, const float* w,
                                    const float* scal, const float* trow,

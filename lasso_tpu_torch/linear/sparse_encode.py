@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``linear/sparse_encode.py``, with the same
 algorithm names, init modes and per-algorithm init defaults. ``'ista'``,
-``'cd'`` and ``'cd-mod'`` are ported; every other known name raises
-``NotImplementedError`` naming its ROADMAP item, and an unknown name
-raises ``ValueError``.
+``'cd'``, ``'cd-mod'`` and ``'group-ista'`` are ported; every other known
+name raises ``NotImplementedError`` naming its ROADMAP item, and an
+unknown name raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ _init_defaults = {
 # where each algorithm that is not ported yet stands in ROADMAP.md queue A
 _NOT_PORTED = {
     "omp": "A item 7",
-    "group-ista": "A item 8",
     "gpsr": "A item 9",
     "iter-ridge": "A item 9",
     "interior-point": "A item 9",
@@ -80,8 +79,9 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
     """Batched sparse coding: ``min_z 0.5||z W^T - x||^2 + alpha ||z||_1``.
 
     ``alpha`` may be a scalar, an ``[N]`` per-sample vector or a ``[1, K]``
-    per-feature row; ista and cd take all three natively, and the other
-    algorithms get them through the homogeneity wrappers below.
+    per-feature row; ista and cd take all three natively, group-ista takes
+    the first two and refuses the row, and the other algorithms get them
+    through the homogeneity wrappers below.
     ``generator`` seeds the ``'unif'`` init. ``return_iters=True``
     returns ``(z, n_iter)``.
     """
@@ -155,5 +155,10 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
     if algorithm == "cd":
         return solvers.coord_descent(x, weight, z0, alpha,
                                      return_iters=return_iters, **kwargs)
+    if algorithm == "group-ista":
+        # group lasso / sparse-group lasso: needs a ``groups`` kwarg (int
+        # block size or [K] id array)
+        return solvers.group_ista(x, z0, weight, alpha,
+                                  return_iters=return_iters, **kwargs)
     return solvers.ista(x, z0, weight, alpha, return_iters=return_iters,
                         **kwargs)

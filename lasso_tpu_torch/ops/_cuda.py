@@ -11,7 +11,8 @@ A :class:`CudaKernel` is one C entry of such a library. It counts its
 launches in the plain integer attribute ``launches``: one per launch, and
 nowhere else. ``WRAPPER_CALLS`` counts the calls of the Python functions
 that issue them (such as one ``fused_fista_multistep`` call, which
-launches two kernels per sub-step) when they take the CUDA route.
+launches two kernels per sub-step, or one ``fused_group_fista_multistep``
+call, which launches three) when they take the CUDA route.
 """
 
 from __future__ import annotations
@@ -147,9 +148,19 @@ def stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def check_cuda(**tensors):
-    """The kernels take contiguous float32 tensors on one CUDA device
-    (None stands for a missing optional one); anything else raises."""
+def check_shapes(want):
+    """``want`` maps names to ``(tensor, shape)``; a tensor of another
+    shape raises (None stands for a missing optional one)."""
+    for name, (t, shape) in want.items():
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+
+
+def check_cuda(int32=(), **tensors):
+    """The kernels take contiguous float32 tensors (int32 for the names in
+    ``int32``) on one CUDA device (None stands for a missing optional
+    one); anything else raises."""
     import torch
     device = None
     for name, t in tensors.items():
@@ -161,7 +172,8 @@ def check_cuda(**tensors):
             device = t.device
         elif t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        dtype = torch.int32 if name in int32 else torch.float32
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

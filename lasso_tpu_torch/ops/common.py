@@ -18,7 +18,8 @@ def resolve_pallas(use_pallas, supported, device):
 
     The name is kept from the JAX package so that both packages take the
     same keyword. Returns whether the fused step functions of
-    :mod:`lasso_tpu_torch.ops.fused_ista` are used:
+    :mod:`lasso_tpu_torch.ops.fused_ista` (or, for ``group_ista``, of
+    :mod:`lasso_tpu_torch.ops.fused_group`) are used:
 
     * 'auto': only for tensors on a CUDA ``device`` with supported shapes
       (there the fused functions launch the hand-written kernels);

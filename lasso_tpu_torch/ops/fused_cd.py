@@ -75,13 +75,6 @@ def _scale(l2):
     return 1.0 / (1.0 + _f32(l2))
 
 
-def _check_shapes(want):
-    for name, (t, shape) in want.items():
-        if t is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-
-
 def fused_cd_steps(b, z, active, S, alpha, tol_k, steps=8,
                    kernel_precision="f32", nonneg=False, l2=0.0):
     """``steps`` fused greedy-CD iterations. Returns ``(b, z, active)``.
@@ -104,7 +97,7 @@ def fused_cd_steps(b, z, active, S, alpha, tol_k, steps=8,
     if a.ndim > 0:
         trow = a.to(b.device).reshape(1, K).contiguous()
     _cuda.check_cuda(b=b, z=z, active=active, S=S, trow=trow)
-    _check_shapes({"z": (z, (N, K)), "active": (active, (N, 1)),
+    _cuda.check_shapes({"z": (z, (N, K)), "active": (active, (N, 1)),
                    "S": (S, (K, K)), "trow": (trow, (1, K))})
     if K < 32 or N == 0:
         raise ValueError(f"the cd_steps kernel needs K >= 32 and N > 0, got "
@@ -167,7 +160,7 @@ def fused_cd_mod_sweep(z, R, converged, weight, norm_cols, alpha, l2=0.0):
     nrm = norm_cols.to(torch.float32).contiguous()
     act = (~converged).to(torch.float32)
     _cuda.check_cuda(z=z, R=R, weight=wt, norm_cols=nrm, converged=act)
-    _check_shapes({"R": (R, (N, D)), "weight": (weight, (D, K)),
+    _cuda.check_shapes({"R": (R, (N, D)), "weight": (weight, (D, K)),
                    "norm_cols": (nrm, (K,)), "converged": (act, (N,))})
     if min(N, D, K) == 0:
         raise ValueError(f"empty problem N={N}, D={D}, K={K}")

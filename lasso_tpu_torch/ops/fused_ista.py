@@ -181,13 +181,15 @@ def fista_resid(x, z, z_prev, weight, scal, t_vec=None,
 
 def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
                     nonneg=False, kernel_precision="f32", out=None,
-                    with_delta=True):
+                    with_delta=True, advance_t=True):
     """K2: ``z_next = prox(y - lr (resid W), th) * scale``.
 
     ``trow`` is a ``[1, K]`` threshold row (already times lr) in place of
     ``scal[1]``. With the ``[N, 1]`` restart carry ``t_vec``, ``t_vec`` is
     advanced in place (``t = 1`` where ``<y - z_next, z_next - z> > 0``,
-    else ``t_next``). ``out`` may be ``z_prev`` itself. Returns
+    else ``t_next``); with ``advance_t=False`` it is only read for the
+    momentum (the group path advances it after its group shrink).
+    ``out`` may be ``z_prev`` itself. Returns
     ``(z_next, delta)``, ``delta = sum|z_next - z|`` as a 0-d tensor (None
     when ``with_delta`` is False). On a CPU tensor this runs
     :func:`fista_grad_prox_plain`; otherwise it launches the kernel or
@@ -197,7 +199,7 @@ def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
     if resid.device.type == "cpu":
         return _grad_prox_plain_into(resid, z, z_prev, weight, scal, trow,
                                      t_vec, nonneg, kernel_precision, out,
-                                     with_delta)
+                                     with_delta, advance_t)
     N, D = resid.shape
     K = weight.shape[1]
     dev = resid.device
@@ -206,7 +208,7 @@ def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
     delta = (torch.empty((1,), dtype=torch.float32, device=dev)
              if with_delta else None)
     rdot = counters = None
-    if t_vec is not None:
+    if t_vec is not None and advance_t:
         rdot = torch.zeros((N,), dtype=torch.float32, device=dev)
         counters = torch.zeros((-(-N // _ROW_TILE),), dtype=torch.int32,
                                device=dev)
@@ -223,13 +225,13 @@ def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
 
 def _grad_prox_plain_into(resid, z, z_prev, weight, scal, trow=None,
                           t_vec=None, nonneg=False, kernel_precision="f32",
-                          out=None, with_delta=True):
+                          out=None, with_delta=True, advance_t=True):
     """:func:`fista_grad_prox_plain` with the calling convention of
     :func:`fista_grad_prox` (``t_vec`` advanced in place, ``out``)."""
     z_next, delta, t_new = fista_grad_prox_plain(
         resid, z, z_prev, weight, scal, trow, t_vec, nonneg,
         kernel_precision)
-    if t_vec is not None:
+    if t_vec is not None and advance_t:
         t_vec.copy_(t_new)
     if out is not None:
         z_next = out.copy_(z_next)

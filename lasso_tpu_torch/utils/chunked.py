@@ -31,9 +31,18 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
     per-sample alpha is sliced per chunk (padding rows get alpha 1); a
     per-feature ``[1, K]`` row passes to every chunk unchanged.
 
-    ``output='csr'`` (``csr_eps``), ``screen=True`` (``screen_kwargs``)
-    and ``algorithm='ista_conv2d'`` are not ported yet and raise.
+    ``screen=True`` routes each chunk through
+    :func:`lasso_tpu_torch.linear.screened_encode` (gap-safe certified
+    dictionary shrinking with a full-K fallback; it pays at strongly sparse
+    alphas, where a chunk's union support sits well under K), with
+    ``screen_kwargs`` (warm_iters, bucket, min_shrink) forwarded; it needs
+    a scalar alpha, and its keep-mask crosses to the host inside each
+    dispatch, so the chunks then run one after another.
+
+    ``output='csr'`` (``csr_eps``) and ``algorithm='ista_conv2d'`` are not
+    ported yet and raise.
     """
+    from lasso_tpu_torch.linear.screening import screened_encode
     from lasso_tpu_torch.linear.sparse_encode import sparse_encode
 
     if output not in ("dense", "csr"):
@@ -42,10 +51,6 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
         raise NotImplementedError(
             "output='csr' needs the native CSR packer, which is not ported "
             "yet (ROADMAP A item 13)")
-    if screen:
-        raise NotImplementedError(
-            "screen=True needs gap-safe screening, which is not ported yet "
-            "(ROADMAP A item 8)")
     if algorithm == "ista_conv2d":
         raise NotImplementedError(
             "algorithm='ista_conv2d' needs the conv2d slice, which is not "
@@ -67,6 +72,9 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
     per_feature = (a_arr.ndim == 2 and a_arr.shape[0] == 1
                    and a_arr.shape[1] != 1)
     vec_alpha = a_arr.ndim >= 1 and not per_feature
+    if a_arr.ndim >= 1 and screen:
+        raise ValueError("screen=True requires a scalar alpha (the gap-safe "
+                         "certificate is a scalar-penalty construction)")
     if vec_alpha:
         if a_arr.shape[0] != N:
             raise ValueError(f"per-sample alpha must have shape ({N},), "
@@ -91,8 +99,12 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
                     [ab, np.ones(chunk_size - (stop - start), np.float32)])
             ab = torch.from_numpy(ab).to(device)
         xb = torch.from_numpy(np.ascontiguousarray(xb)).to(device)
-        zb = sparse_encode(xb, weight, alpha=ab, algorithm=algorithm,
-                           **kwargs)
+        if screen:
+            zb = screened_encode(xb, weight, alpha, algorithm=algorithm,
+                                 **(screen_kwargs or {}), **kwargs)
+        else:
+            zb = sparse_encode(xb, weight, alpha=ab, algorithm=algorithm,
+                               **kwargs)
         return (zb[0] if isinstance(zb, tuple) else zb), start, stop
 
     def land(zb, start, stop):

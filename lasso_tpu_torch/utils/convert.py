@@ -34,16 +34,23 @@ def from_numpy_params(params, device):
     training state: the replacement atoms of each step as the JAX package
     draws them, ``'atoms'`` (``[steps, K, D]``, the sequential M-step) or
     ``'atoms_block'`` (``[steps, D, K]``, the block M-step), and the online
-    statistics ``'A'`` (``[K, K]``) and ``'B'`` (``[D, K]``). Returns a
-    dict with the same keys of contiguous float32 tensors on ``device``,
-    after checking that the shapes agree.
+    statistics ``'A'`` (``[K, K]``) and ``'B'`` (``[D, K]``); and the
+    group structure of ``group_ista``: ``'groups'``, an int block size
+    (dividing K) or a ``[K]`` integer array of group ids, and
+    ``'group_weights'`` (``[G]``). Returns a dict with the same keys of
+    contiguous float32 tensors on ``device``, after checking that the
+    shapes agree; a block size stays a Python int, and an id array becomes
+    an integer tensor of its own int32 or int64 type.
     """
     device = resolve_device(device)
     unknown = set(params) - {"weight", "weight0", "x", "z0", "alpha",
-                             "atoms", "atoms_block", "A", "B"}
+                             "atoms", "atoms_block", "A", "B", "groups",
+                             "group_weights"}
     if unknown:
         raise ValueError(f"unknown parameters {sorted(unknown)}")
-    arrays = {k: np.asarray(v, dtype=np.float32) for k, v in params.items()}
+    groups = params.get("groups")
+    arrays = {k: np.asarray(v, dtype=np.float32) for k, v in params.items()
+              if k != "groups"}
     dicts = [arrays[k] for k in ("weight", "weight0") if k in arrays]
     if not dicts or any(w.ndim != 2 for w in dicts):
         raise ValueError("params needs a 2-D 'weight' or 'weight0' [D, K]")
@@ -77,6 +84,34 @@ def from_numpy_params(params, device):
         if not ok:
             raise ValueError(f"alpha has shape {a.shape}: expected a "
                              f"scalar, [N], [N, 1], [1, {K}] or [{K}]")
+    n_groups = None
+    if groups is not None:
+        g = np.asarray(groups)
+        if g.ndim == 0 and g.dtype.kind in "iu":
+            if int(g) < 1 or K % int(g) != 0:
+                raise ValueError(f"groups: block size {int(g)} does not "
+                                 f"divide K={K}")
+            groups, n_groups = int(g), K // int(g)
+        elif g.shape == (K,) and g.dtype.kind in "iu":
+            if g.min() < 0 or len(np.unique(g)) != int(g.max()) + 1:
+                raise ValueError("groups: ids must be 0..G-1 with every id "
+                                 "used")
+            n_groups = int(g.max()) + 1
+            g = g.astype(np.int64 if g.dtype.itemsize > 4 else np.int32)
+            groups = torch.from_numpy(np.require(g, requirements=["C", "W"])
+                                      ).to(device)
+        else:
+            raise ValueError(f"groups must be an int block size or an int "
+                             f"array of shape ({K},), got shape {g.shape} "
+                             f"dtype {g.dtype}")
+    if "group_weights" in arrays:
+        gw = arrays["group_weights"]
+        if n_groups is None or gw.shape != (n_groups,):
+            raise ValueError(f"group_weights has shape {gw.shape}, expected "
+                             f"[G] with G={n_groups} from 'groups'")
     # a read-only array (one of JAX's, say) is copied, never shared
-    return {k: torch.from_numpy(np.require(v, requirements=["C", "W"]))
-            .to(device) for k, v in arrays.items()}
+    out = {k: torch.from_numpy(np.require(v, requirements=["C", "W"]))
+           .to(device) for k, v in arrays.items()}
+    if groups is not None:
+        out["groups"] = groups
+    return out

@@ -71,7 +71,7 @@ def test_sparse_encode_dispatch_errors(rng):
     with pytest.raises(ValueError, match="unknown algorithm"):
         sparse_encode(*args, algorithm="bogus")
     for name in ("gpsr", "iter-ridge", "interior-point", "split-bregman",
-                 "own", "omp", "group-ista"):
+                 "own", "omp"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sparse_encode(*args, algorithm=name)
     with pytest.raises(NotImplementedError):   # through the row rescaling
@@ -115,12 +115,14 @@ def test_chunked_encode_options(rng):
     assert chunked_encode(x[:0], W, device="cpu").shape == (0, 128)
     with pytest.raises(ValueError):
         chunked_encode(x, W, output="coo", device="cpu")
-    for bad in ({"output": "csr"}, {"screen": True},
-                {"algorithm": "ista_conv2d"}):
+    for bad in ({"output": "csr"}, {"algorithm": "ista_conv2d"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             chunked_encode(x, W, device="cpu", **bad)
     with pytest.raises(ValueError):
         chunked_encode(x, W, np.ones(9, np.float32), device="cpu")
+    with pytest.raises(ValueError, match="scalar alpha"):   # screen=True
+        chunked_encode(x, W, np.ones(10, np.float32), device="cpu",
+                       screen=True)
 
 
 def test_cli_encode(rng, tmp_path, capsys, monkeypatch):

@@ -1,6 +1,6 @@
-"""lasso_tpu_torch on a CUDA card: the kernels (FISTA and coordinate
-descent) against their plain versions, and the solver's fused path
-against its CPU run.
+"""lasso_tpu_torch on a CUDA card: the kernels (FISTA, coordinate descent
+and the group prox) against their plain versions, and the solvers' fused
+paths against their CPU runs.
 
 Every test here is marked ``gpu`` and skips where there is no card. This
 file imports neither JAX nor the JAX package, so that it runs on a
@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from lasso_tpu_torch.linear.solvers import ista
+from lasso_tpu_torch.linear.solvers import group_ista, ista
 from lasso_tpu_torch.ops import _cuda
 from lasso_tpu_torch.ops import fused_cd as T_CD
+from lasso_tpu_torch.ops import fused_group as T_G
 from lasso_tpu_torch.ops import fused_ista as T
 
 from _torch_port import make_problem, n, t
@@ -134,3 +135,74 @@ def test_cd_mod_sweep_kernel_matches_plain(d):
     for a, c in zip(got[2:], want[2:]):
         np.testing.assert_allclose(n(a), n(c), rtol=1e-5, atol=1e-7)
     np.testing.assert_array_equal(n(got[0])[n(conv)], n(z)[n(conv)])
+
+
+@pytest.mark.parametrize("kp", ["f32", "bf16"])
+def test_group_prox_kernel_matches_plain(kp):
+    """K5 against its plain version on the card, alone and inside an
+    8-sub-step group-FISTA call: permuted ragged groups with weights, and
+    contiguous blocks with l1 and restart. z atol 1e-5 (f32) / 5e-3 (bf16),
+    delta rtol 1e-5 / 5e-2, the restart carry equal."""
+    _need_card()
+    rng = np.random.default_rng(2)
+    x, z, zp, W = (t(a).cuda() for a in make_problem(rng, 200, 128, 256))
+    ids = np.concatenate([np.zeros(3), np.ones(45), np.full(80, 2),
+                          np.repeat(np.arange(3, 19), 8)]).astype(np.int32)
+    ids = ids[rng.permutation(256)]
+    w_g = np.sqrt(np.bincount(ids)).astype(np.float32)     # Yuan-Lin
+    ragged = T_G.build_group_tables(ids, 19, "cuda")
+    blocks = T_G.build_group_tables(np.repeat(np.arange(32), 8), 32, "cuda",
+                                    block=8)
+    tv = t((3.0 * rng.random((200, 1))).astype(np.float32)).cuda()
+    atol, rtol = (1e-5, 1e-5) if kp == "f32" else (5e-3, 5e-2)
+    before = T_G.GROUP_PROX[kp].launches
+    v = z + 0.3 * (zp - z)
+    for tables, thg, t_vec in ((ragged, 0.02 * t(w_g).cuda(), None),
+                               (blocks, torch.full((32,), 0.02).cuda(), tv)):
+        t_k = None if t_vec is None else t_vec.clone()
+        t_p = None if t_vec is None else t_vec.clone()
+        got = T_G.group_prox_update(v, z, zp, t_k, thg, tables,
+                                    kernel_precision=kp)
+        want = T_G._group_prox_update_plain_into(v, z, zp, t_p, thg, tables,
+                                                 kernel_precision=kp)
+        np.testing.assert_allclose(n(got[0]), n(want[0]), rtol=0, atol=atol)
+        np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=rtol)
+        if t_vec is not None:
+            np.testing.assert_array_equal(n(t_k), n(t_p))
+        kw = dict(kernel_precision=kp, t_vec=t_vec,
+                  use_l1=t_vec is not None)
+        args = (x, z, zp, W, 0.1, thg, 0.01, torch.linspace(0, 0.6, 8),
+                tables, 8)
+        got = T_G.fused_group_fista_multistep(*args, **kw)
+        want = T_G.fused_group_fista_multistep_plain(*args, **kw)
+        for a, b in zip(got[:-1], want[:-1]):
+            np.testing.assert_allclose(n(a), n(b), rtol=0, atol=atol)
+        np.testing.assert_allclose(float(got[-1]), float(want[-1]),
+                                   rtol=rtol)
+    assert T_G.GROUP_PROX[kp].launches - before == 18
+
+
+@pytest.mark.parametrize("kw", [
+    {"maxiter": 37, "tol": 0.0},
+    {"maxiter": 64, "tol": 0.0, "restart": True, "groups": "ids",
+     "l1_alpha": 0.05},
+], ids=["blocks_remainder", "ids_restart_l1"])
+def test_group_ista_on_card_matches_cpu(kw):
+    """group_ista's fused path on the card against the same solve on the
+    CPU (plain versions): n_iter equal, codes atol 1e-4."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    x, _, _, W = make_problem(rng, n=16)
+    kw = dict(kw)
+    kw["groups"] = (np.asarray(rng.permutation(np.repeat(np.arange(16), 16)),
+                               np.int32)
+                    if kw.get("groups") == "ids" else 8)
+    z0 = np.zeros((16, W.shape[1]), np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = group_ista(t(x).to(dev), t(z0).to(dev), t(W).to(dev),
+                              0.1, lr=0.1, use_pallas=True,
+                              return_iters=True, **kw)
+    assert out["cuda"][1] == out["cpu"][1]
+    np.testing.assert_allclose(n(out["cuda"][0]), n(out["cpu"][0]),
+                               atol=1e-4)
