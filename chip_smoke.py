@@ -73,6 +73,39 @@ before the last line is printed.
    algorithm='group-ista')`` over 4 alphas at N=4096; and
    ``chunked_encode(screen=True)`` at alpha=3.5, where screening shrinks
    K, against the unscreened encode (atol 1e-4).
+10. The OMP kernels against their plain versions on the card: the fused
+   solve (K6a ``omp_select``, K6b ``omp_orth``, K6c ``omp_backsub`` of
+   ``csrc/omp.cu``) at 1000x(256->512), N not a multiple of the 128-row
+   tile, with T=13 in f32 and bf16, with a tol freeze mid-run (T=16), by
+   the JAX tests' equivalence rule (codes atol 2e-4 where the supports
+   agree, else the per-row rss rtol 1e-3) and validity equal; with
+   duplicated atoms, finite codes and the per-row rss (rtol 1e-3) on every
+   row, since the pivot floor leaves the split of weight across a
+   dependent pair to rounding; K7 ``chol_append_solve`` of ``csrc/chol.cu``
+   over T appends from the identity (T=16 and 64, in place and into a
+   fresh buffer, every fifth system the identity) at rtol 2e-4 / atol
+   1e-5. Then each entry at the headline width (16384x512->2048, T=64,
+   ``benchmarks/omp_fused_bench.py``'s problem): one solve with CUDA
+   events around every launch, kernels and plain versions, held to each
+   other by the headline rule below, and K7 over 64 appends, in place
+   against a fresh buffer at k=32.
+11. The OMP slice at that width through ``sparse_encode(algorithm='omp',
+   n_nonzero_coefs=64)``: 'auto' (must take the fused kernels: 64
+   ``omp_select_f32`` and ``omp_orth`` launches and one ``omp_backsub``),
+   'fused' in bf16, 'chol' (64 ``chol_append_solve`` launches) and 'auto'
+   with a tol that about half the rows reach; solves/s and ms a step;
+   at most 64 nonzeros a row and finite codes; 'fused' and 'chol' by the
+   headline rule; the bf16 mean rss within 5e-2 of f32's; and
+   ``encode --algorithm omp`` through the CLI on 40000 rows in chunks of
+   16384, against direct ``sparse_encode`` calls (the equivalence rule).
+   The headline rule for two fits of 16384 rows: codes atol 2e-4 on the
+   rows whose supports agree, and at most 64 rows that part, each of them
+   in both fits an OMP solution up to near-ties in float64 (an order of
+   its support in which every atom scores within 1e-4 relative of the
+   best, and codes within 2e-4 of the least-squares fit). The JAX tests'
+   rss fallback is printed but not held there: at T=64 two greedy paths
+   that part at a near-tie go on apart, and their rss differ by more than
+   1e-3 (PERF.md).
 
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -102,9 +135,11 @@ from lasso_tpu_torch import linear  # noqa: E402
 from lasso_tpu_torch.linear import lasso_path, sparse_encode  # noqa: E402
 from lasso_tpu_torch.linear.solvers import coord_descent_mod  # noqa: E402
 from lasso_tpu_torch.ops import _cuda  # noqa: E402
+from lasso_tpu_torch.ops import batched_cholesky as B  # noqa: E402
 from lasso_tpu_torch.ops import fused_cd as C  # noqa: E402
 from lasso_tpu_torch.ops import fused_group as G  # noqa: E402
 from lasso_tpu_torch.ops import fused_ista as F  # noqa: E402
+from lasso_tpu_torch.ops import fused_omp as O  # noqa: E402
 from lasso_tpu_torch.utils import chunked_encode  # noqa: E402
 
 N, D, K = headline_bench.N, headline_bench.D, headline_bench.K
@@ -122,7 +157,12 @@ TRAIN_N, TRAIN_D, TRAIN_K = 16384, 256, 1024   # the training width
 GROUP_SOURCE = "lasso_tpu_torch/csrc/group.cu"
 GROUP_REPLACES = "lasso_tpu/ops/fused_group.py:283"
 GS, GROUP_ALPHA, GROUP_LR = 8, 0.1, 0.05       # benchmarks/group_bench.py
-CLI_ROWS, CLI_CHUNK = 40000, 16384              # phases 4 and 9
+CLI_ROWS, CLI_CHUNK = 40000, 16384              # phases 4, 9 and 11
+OMP_SOURCE = "lasso_tpu_torch/csrc/omp.cu"
+OMP_REPLACES = "lasso_tpu/ops/fused_omp.py:308"
+CHOL_SOURCE = "lasso_tpu_torch/csrc/chol.cu"
+CHOL_REPLACES = "lasso_tpu/ops/batched_cholesky.py:290"
+OMP_T = 64                                      # benchmarks/omp_fused_bench.py
 PATH_N, SCREEN_ROWS, SCREEN_CHUNK = 4096, 8192, 2048
 DEV = torch.device("cuda")
 DL = importlib.import_module("lasso_tpu_torch.linear.dict_learning")
@@ -141,11 +181,21 @@ def card_line():
         check=True, timeout=60).stdout.strip()
 
 
+def hold_the_card():
+    """Enqueue about 20 ms of work on the card (an 8192^3 f32 product), so
+    that the launches enqueued after it wait for the card and not for the
+    host: the events between them then time the card alone, also for a
+    kernel shorter than its Python wrapper."""
+    a = torch.full((8192, 8192), 1e-3, device=DEV)
+    torch.matmul(a, a)
+
+
 def cuda_ms(fn, reps=20, warm=3):
     """Mean time of ``fn`` on the card from CUDA events over ``reps``
     calls, after ``warm`` calls."""
     for _ in range(warm):
         fn()
+    hold_the_card()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -973,6 +1023,485 @@ def phase_group_slice(x_np, W_np):
     return counts
 
 
+def omp_codes(idx, z_s, k):
+    """The [N, k] codes of a support and its coefficients."""
+    z = torch.zeros((idx.shape[0], k), device=z_s.device)
+    return z.scatter_add_(1, idx.long(), z_s)
+
+
+def omp_rss64(x, W, z):
+    """Per-row squared residual in float64 on the card."""
+    r = x.double() - z.double() @ W.double().T
+    return torch.sum(r * r, dim=1)
+
+
+def omp_equivalent(x, W, za, zb):
+    """The JAX tests' rule for two OMP fits (tests/test_fused_omp.py:31-43):
+    codes within 2e-4 on the rows whose supports agree; on the rows where
+    a near-tie flipped an atom, the per-row rss within 1e-3 relative (plus
+    1e-5). Returns (ok, share of rows with equal supports, max code error
+    there, max rss error elsewhere, the rows that part)."""
+    same = torch.all((za != 0) == (zb != 0), dim=1)
+    err = float((za[same] - zb[same]).abs().max()) if bool(same.any()) \
+        else 0.0
+    ra, rb = omp_rss64(x, W, za)[~same], omp_rss64(x, W, zb)[~same]
+    rel = float(((ra - rb).abs() / (1e-3 * ra.abs() + 1e-5)).max()) \
+        if bool((~same).any()) else 0.0
+    return (err <= 2e-4 and rel <= 1.0, float(same.float().mean()), err,
+            rel * 1e-3, torch.nonzero(~same)[:, 0])
+
+
+def omp_certificate(x, W, z, rows, eps=1e-4):
+    """Whether each of ``rows`` of the codes z is an OMP solution up to
+    near-ties, in float64: some order of the row's support must take, at
+    every step, an atom that scores within a relative ``eps`` of the best
+    unselected atom on the least-squares residual of the atoms before it
+    (where two support atoms tie, both orders are tried), and the codes
+    must be the least-squares fit on the support. Returns (the largest gap
+    of the orders found, 1.0 where a row has none; the largest code
+    error). The solves here are the check's own float64 reference."""
+    W64 = W.double()
+    inv = 1.0 / W64.norm(dim=0)
+    gap, cerr = 0.0, 0.0
+    for i in rows.tolist():
+        x64 = x[i].double()
+        support = torch.nonzero(z[i])[:, 0].tolist()
+        budget = [4 * len(support)]
+
+        def fit(chosen):
+            Ws = W64[:, chosen]
+            return torch.linalg.solve(Ws.T @ Ws, Ws.T @ x64)
+
+        def search(chosen, worst):
+            """An eps-greedy order extending ``chosen``, or None."""
+            if len(chosen) == len(support):
+                return worst
+            budget[0] -= 1
+            if budget[0] < 0:
+                return None
+            r = x64 - W64[:, chosen] @ fit(chosen) if chosen else x64
+            score = (r @ W64).abs() * inv
+            score[chosen] = -1.0
+            best = float(score.max())
+            cands = sorted((a for a in support if a not in chosen),
+                           key=lambda a: -float(score[a]))
+            for a in cands:
+                g = (best - float(score[a])) / best
+                if g > eps:
+                    break
+                found = search(chosen + [a], max(worst, g))
+                if found is not None:
+                    return found
+            return None
+
+        found = search([], 0.0)
+        gap = max(gap, 1.0 if found is None else found)
+        cerr = max(cerr, float((z[i, support].double() - fit(support))
+                               .abs().max()))
+    return gap, cerr
+
+
+def omp_agree_at_scale(x, W, za, zb, label):
+    """Two OMP fits at the headline width: codes within 2e-4 on the rows
+    whose supports agree, and at most 64 rows that part, each of them in
+    both fits an OMP solution up to near-ties (``omp_certificate``: gap at
+    most 1e-4, codes within 2e-4 of the float64 least-squares fit). The
+    JAX tests' rss fallback is printed: at T=64 two greedy paths that part
+    at a near-tie go on apart for the remaining steps, and their rss can
+    differ by more than its 1e-3."""
+    ok, share, err, rel, part = omp_equivalent(x, W, za, zb)
+    n_part = len(part)
+    cert = [omp_certificate(x, W, z, part) if n_part <= 64 else (1.0, 1.0)
+            for z in (za, zb)]
+    gap, cerr = max(c[0] for c in cert), max(c[1] for c in cert)
+    print(f"[{label}] supports equal on {share:.6f} of rows, codes max|err| "
+          f"{err:.3e} (2e-4); {n_part} rows part (at most 64): largest "
+          f"near-tie gap {gap:.3e} (1e-4), codes against their float64 "
+          f"least-squares fit {cerr:.3e} (2e-4); the JAX tests' rss rule on "
+          f"those rows {'holds' if ok else 'does not hold'}: rss max rel "
+          f"err {rel:.3e} (1e-3)")
+    return err <= 2e-4 and n_part <= 64 and gap <= 1e-4 and cerr <= 2e-4
+
+
+def omp_case(n, d, k, T, seed, duplicate=False):
+    """Unit atoms (with ``duplicate`` each odd atom a copy of the even one
+    before it, which the zero rows select in turn), x with 16 rows 3-sparse
+    over W (they freeze under tol at step 3) and 8 zero rows (frozen at
+    step 0 under tol)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    W = torch.randn(d, k, generator=g, device=DEV)
+    if duplicate:
+        W[:, 1::2] = W[:, ::2]
+    W = W / W.norm(dim=0)
+    x = torch.randn(n, d, generator=g, device=DEV)
+    zt = torch.zeros(16, k, device=DEV)
+    zt[:, 3:6] = torch.randn(16, 3, generator=g, device=DEV)
+    x[:16] = zt @ W.T
+    x[16:24] = 0.0
+    return x, W
+
+
+def timed_fused_solve(x, W, T, kp, plain=False):
+    """One fused OMP solve through its three entries (the kernels, or
+    their plain versions), with CUDA events around every launch, enqueued
+    behind ``hold_the_card`` (the plain versions' many small launches may
+    still outrun it, and then their times include the host). Returns
+    (idx, valid, z_s, per-step select ms, per-step orth ms, backsub ms)."""
+    sel_f, orth_f, back_f = ((O.omp_select_plain, O.omp_orth_plain,
+                              O.omp_backsub_plain) if plain else
+                             (O.omp_select, O.omp_orth, O.omp_backsub))
+    invn, wt = O.inverse_norms(W), W.T.contiguous()
+    state = O.omp_init_state(x, W.shape[1], T)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * T + 2)]
+    hold_the_card()
+    for k in range(T):
+        ev[2 * k].record()
+        sel_f(state, W, invn, kp)
+        ev[2 * k + 1].record()
+        orth_f(state, wt, k)
+    ev[2 * T].record()
+    z_t = back_f(state)
+    ev[2 * T + 1].record()
+    torch.cuda.synchronize()
+    sel_ms = [ev[2 * k].elapsed_time(ev[2 * k + 1]) for k in range(T)]
+    orth_ms = [ev[2 * k + 1].elapsed_time(ev[2 * k + 2]) for k in range(T)]
+    valid = state.valid > 0
+    return (state.idx, valid, torch.where(valid, z_t, 0.0), sel_ms, orth_ms,
+            ev[2 * T].elapsed_time(ev[2 * T + 1]))
+
+
+def pd_rows(B_, T, seed):
+    """The Gram rows and right-hand sides of B_ random PD systems
+    M = A A^T / T + I, [T, T, B_] and [T, B_], every fifth system the
+    identity (a frozen OMP sample appends identity rows)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    A = torch.randn(B_, T, T, generator=g, device=DEV)
+    M = A @ A.transpose(1, 2) / T + torch.eye(T, device=DEV)
+    M[::5] = torch.eye(T, device=DEV)
+    return M.permute(1, 2, 0).contiguous(), torch.randn(
+        T, B_, generator=g, device=DEV)
+
+
+def append_rows(M, rhs, k):
+    """Row k of the systems and the first k + 1 entries of rhs, zero
+    beyond, as the OMP step gives them."""
+    g = M[k].clone()
+    g[k + 1:] = 0.0
+    b = rhs.clone()
+    b[k + 1:] = 0.0
+    return g, b
+
+
+def phase_omp_kernels():
+    """K6 (fused OMP: omp_select, omp_orth, omp_backsub) and K7
+    (chol_append_solve) against their plain versions on the card, then
+    each alone at the headline width: time, plain time, bound."""
+    for n, d, k, T, kp, tol, dup in (
+            (1000, 256, 512, 13, "f32", None, False),
+            (1000, 256, 512, 13, "bf16", None, False),
+            (1000, 256, 512, 16, "f32", 1e-4, False),
+            (1000, 256, 512, 16, "f32", None, True)):
+        x, W = omp_case(n, d, k, T, seed=n + T, duplicate=dup)
+        got = O.fused_omp_solve(x, W, T, tol=tol, kernel_precision=kp)
+        torch.cuda.synchronize()
+        want = O.fused_omp_solve_plain(x, W, T, tol=tol, kernel_precision=kp)
+        za, zb = omp_codes(want[0], want[2], k), omp_codes(got[0], got[2], k)
+        ok, share, err, rel, _ = omp_equivalent(x, W, za, zb)
+        if dup:
+            # a dependent pair's weight split follows the pivot floor's
+            # rounding (tests/test_fused_omp.py holds such dictionaries to
+            # finite codes and the fitted residual): rss on every row
+            ra, rb = omp_rss64(x, W, za), omp_rss64(x, W, zb)
+            rel = float(((ra - rb).abs() / (1e-3 * ra + 1e-5)).max()) * 1e-3
+            ok = rel <= 1e-3
+        frozen = int((~got[1][:, -1]).sum())
+        v_same = bool(torch.equal(got[1], want[1]))
+        finite = bool(torch.isfinite(got[2]).all())
+        print(f"[10] fused_omp_solve {kp} {n}x{d}->{k} T={T} tol={tol} "
+              f"duplicated={dup}: supports equal on {share:.4f} of rows, "
+              f"codes max|err| {err:.3e} ({'not held' if dup else '2e-4'}), "
+              f"rss max rel err {rel:.3e} (1e-3{', every row' if dup else ''}"
+              f"), valid equal {v_same}, {frozen} rows frozen, finite "
+              f"{finite}")
+        check(ok and v_same and finite and (tol is None or frozen >= 24),
+              f"fused OMP {kp} T={T} tol={tol} duplicated={dup}")
+    for T, B_ in ((16, 1000), (64, 1000)):
+        M, rhs = pd_rows(B_, T, seed=T)
+        V = torch.eye(T, device=DEV)[:, :, None].repeat(1, 1, B_)
+        Vp = V.clone()
+        worst = 0.0
+        for kk in range(T):
+            g, b = append_rows(M, rhs, kk)
+            fresh, z_f = B.cholesky_append_solve_lanes(V, g, b, kk)
+            _, z = B.cholesky_append_solve_lanes(V, g, b, kk, out=V)
+            Vp, z_p = B.cholesky_append_solve_lanes_plain(Vp, g, b, kk)
+            for a, c in ((V, Vp), (fresh, Vp), (z, z_p), (z_f, z_p)):
+                worst = max(worst, float(((a - c).abs() - 2e-4 * c.abs())
+                                         .max()))
+        print(f"[10] chol_append_solve T={T} B={B_}, {T} appends in place "
+              f"and into a fresh buffer: max(|err| - 2e-4 |plain|) "
+              f"{worst:.3e} (atol 1e-5)")
+        check(worst <= 1e-5, f"chol_append_solve T={T}")
+    print("[10] launch counts:", json.dumps(_cuda.launch_counts()))
+
+    # alone at the headline width: one solve with events around every
+    # launch, kernels and plain versions
+    x, W = (torch.from_numpy(a).to(DEV) for a in omp_problem())
+    nK = K // O.TILE
+    rows = {}
+    per = {}
+    for kp in ("f32", "bf16"):
+        per[kp] = timed_fused_solve(x, W, OMP_T, kp)
+        per[kp + "_plain"] = timed_fused_solve(x, W, OMP_T, kp, plain=True)
+    kern, plain = per["f32"], per["f32_plain"]
+    print(f"[10] fused OMP f32 at {N}x{D}->{K} T={OMP_T}, kernels against "
+          f"plain versions:")
+    check(omp_agree_at_scale(x, W, omp_codes(plain[0], plain[2], K),
+                             omp_codes(kern[0], kern[2], K), 10),
+          "fused OMP f32 at the headline against the plain version")
+    # K6a: r and W read, invn, the mask, partials written; 2 N D K ops
+    state = O.omp_init_state(x, K, OMP_T)
+    invn = O.inverse_norms(W)
+    for kp in ("f32", "bf16"):
+        lib = torch.bfloat16 if kp == "bf16" else torch.float32
+        rb, Wb = state.r.to(lib), W.to(lib)
+        O.omp_select(state, W, invn, kp)
+        got = state.pval.clone()
+        O.omp_select_plain(state, W, invn, kp)
+        e = float((got - state.pval).abs().max())
+        t_bytes = (4 * (N * D + D * K + K) + N * K + 8 * N * nK) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * N * D * K / PEAK_FLOPS[kp] * 1e3
+        rows[f"omp_select_{kp}"] = {
+            "name": f"omp_select_{kp}", "route": "cuda",
+            "source": OMP_SOURCE, "replaces": OMP_REPLACES,
+            "launches": None, "max_abs_err": e,
+            "ms": sum(per[kp][3]) / OMP_T,
+            "plain_ms": sum(per[kp + "_plain"][3]) / OMP_T,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": cuda_ms(lambda: torch.matmul(rb, Wb))}
+        print(f"[10] {json.dumps(rows[f'omp_select_{kp}'])} (ms: mean of "
+              f"the {OMP_T} launches of one solve; library: torch.matmul "
+              f"r W in {lib}; max_abs_err: the step-0 partial scores)")
+    # K6b at step k: partials, r in and out, k rows of Q read, q_k, the
+    # atom (W^T once), R column k and the per-row slots; 4 k D + 6 D ops
+    # a row; its ms and bound are the means over the solve's steps
+    nbytes = sum(4 * (N * (2 * D + kk * D + D + kk + 1 + 4) + K * D)
+                 + 8 * N * nK + N for kk in range(OMP_T)) / OMP_T
+    ops = sum(N * (4 * kk * D + 6 * D) for kk in range(OMP_T)) / OMP_T
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["f32"] * 1e3
+    same = torch.all(kern[0] == plain[0], dim=1)
+    e_orth = float((kern[2] - plain[2])[same].abs().max()) \
+        if bool(same.any()) else float("nan")
+    rows["omp_orth"] = {
+        "name": "omp_orth", "route": "cuda", "source": OMP_SOURCE,
+        "replaces": OMP_REPLACES, "launches": None, "max_abs_err": e_orth,
+        "ms": sum(kern[4]) / OMP_T, "plain_ms": sum(plain[4]) / OMP_T,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+    print(f"[10] {json.dumps(rows['omp_orth'])} (means over the {OMP_T} "
+          f"steps of one f32 solve; at steps 0, {OMP_T // 2}, {OMP_T - 1}: "
+          f"{kern[4][0]:.4f}, {kern[4][OMP_T // 2]:.4f}, {kern[4][-1]:.4f} "
+          f"ms; "
+          f"max_abs_err: z_s on rows with equal supports; no PyTorch call "
+          f"does Gram-Schmidt with the freeze: library null)")
+    # K6c: R's upper triangle, d and valid read, z written
+    t_bytes = 4 * N * (OMP_T * (OMP_T + 1) // 2 + 3 * OMP_T) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = N * OMP_T * (OMP_T + 1) / PEAK_FLOPS["f32"] * 1e3
+    rows["omp_backsub"] = {
+        "name": "omp_backsub", "route": "cuda", "source": OMP_SOURCE,
+        "replaces": OMP_REPLACES, "launches": None, "max_abs_err": e_orth,
+        "ms": kern[5], "plain_ms": plain[5],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+    print(f"[10] {json.dumps(rows['omp_backsub'])} (one launch a solve; "
+          f"torch.linalg.solve_triangular is not used: library null)")
+
+    # K7 at B = N, T = 64: the appends of one solve from the identity,
+    # each timed with events; in place against a fresh buffer at k = T / 2
+    M, rhs = pd_rows(N, OMP_T, seed=7)
+    gb = [append_rows(M, rhs, kk) for kk in range(OMP_T)]
+    del M
+
+    def appends(fn, in_place):
+        """The T appends from the identity, enqueued back to back with an
+        event between launches; returns (V, the z of every step, ms of
+        every step)."""
+        V = torch.eye(OMP_T, device=DEV)[:, :, None].repeat(1, 1, N)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(OMP_T + 1)]
+        zs = []
+        hold_the_card()
+        ev[0].record()
+        for kk, (g, b) in enumerate(gb):
+            V, z = fn(V, g, b, kk, out=V) if in_place else fn(V, g, b, kk)
+            ev[kk + 1].record()
+            zs.append(z)
+        torch.cuda.synchronize()
+        return V, zs, [ev[kk].elapsed_time(ev[kk + 1]) for kk in range(OMP_T)]
+
+    V, z_k, ms_k = appends(B.cholesky_append_solve_lanes, True)
+    _, z_p, pms_k = appends(B.cholesky_append_solve_lanes_plain, False)
+    errs = [float((a - b).abs().max()) for a, b in zip(z_k, z_p)]
+    del z_k, z_p
+    # step T / 2 again, in place against a fresh buffer (the timing only:
+    # the kernel reads rows below k and writes row k)
+    k2 = OMP_T // 2
+    g2, b2 = gb[k2]
+    in_place = cuda_ms(lambda: B.cholesky_append_solve_lanes(
+        V, g2, b2, k2, out=V))
+    fresh = torch.empty_like(V)
+    out_of_place = cuda_ms(lambda: B.cholesky_append_solve_lanes(
+        V, g2, b2, k2, out=fresh))
+    # the live block: V's lower triangle in rows < k, g and b to k, row k
+    # and z written; y, u, t and z take 2 (k(k+1) + (k+1)(k+2)) ops a row
+    nbytes = sum(4 * N * (kk * (kk + 1) // 2 + 2 * (kk + 1) + 2 * OMP_T)
+                 for kk in range(OMP_T)) / OMP_T
+    ops = sum(2 * N * (kk * (kk + 1) + (kk + 1) * (kk + 2))
+              for kk in range(OMP_T)) / OMP_T
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["f32"] * 1e3
+    rows["chol_append_solve"] = {
+        "name": "chol_append_solve", "route": "cuda", "source": CHOL_SOURCE,
+        "replaces": CHOL_REPLACES, "launches": None,
+        "max_abs_err": max(errs), "ms": sum(ms_k) / OMP_T,
+        "plain_ms": sum(pms_k) / OMP_T, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+    print(f"[10] {json.dumps(rows['chol_append_solve'])} (means over the "
+          f"{OMP_T} appends from the identity at B={N}; at steps 0, "
+          f"{OMP_T // 2}, {OMP_T - 1}: {ms_k[0]:.4f}, {ms_k[OMP_T // 2]:.4f}, "
+          f"{ms_k[-1]:.4f} ms; no PyTorch call "
+          f"appends to an inverse factor: library null)")
+    print(f"[10] chol_append_solve at k={k2}: {in_place:.4f} ms in place "
+          f"(row k written), {out_of_place:.4f} ms into a fresh buffer "
+          f"(every row written)")
+    return rows
+
+
+def omp_problem():
+    """benchmarks/omp_fused_bench.py's problem: unit atoms, then the first
+    input, from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    W = rng.standard_normal((D, K)).astype(np.float32)
+    W /= np.linalg.norm(W, axis=0, keepdims=True)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    return x, W
+
+
+def phase_omp_slice(x_np, W_np):
+    """The OMP slice at full width through sparse_encode: 'auto' (the
+    fused kernels), 'fused' in bf16, 'chol' (the append kernel) and 'auto'
+    with a tol freeze (the main run of this slice, launches counted), then
+    the CLI in chunks."""
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    kw = dict(algorithm="omp", n_nonzero_coefs=OMP_T)
+    runs = (("auto", {}), ("fused_bf16", dict(solver="fused",
+                                              kernel_precision="bf16")),
+            ("chol", dict(solver="chol")), ("auto_tol", None))
+    want = {"auto": {"fused_omp_solve": 1, "omp_select_f32": OMP_T,
+                     "omp_orth": OMP_T, "omp_backsub": 1},
+            "fused_bf16": {"fused_omp_solve": 1, "omp_select_bf16": OMP_T,
+                           "omp_orth": OMP_T, "omp_backsub": 1},
+            "chol": {"chol_append_solve": OMP_T}}
+    z_of, rss_of = {}, {}
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    for name, extra in runs:
+        if extra is None:
+            # a threshold that about half of the rows reach before T steps
+            tol = float(torch.quantile(rss_of["auto"].float(), 0.5)) * 1.05
+            extra = dict(tol=tol)
+        before = _cuda.launch_counts()
+        t0 = time.perf_counter()
+        z, n_iter = sparse_encode(x, W, return_iters=True, **kw, **extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = _cuda.launch_counts()
+        delta = {k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)}
+        nnz = (z != 0).sum(dim=1)
+        z_of[name], rss_of[name] = z, omp_rss64(x, W, z)
+        print(f"[11] omp {name}: {1 / seconds:.3f} solves/s ({seconds:.4f} s,"
+              f" {seconds / OMP_T * 1e3:.3f} ms a step), n_iter {n_iter}, "
+              f"mean rss {float(rss_of[name].mean()):.6f}, nnz per row "
+              f"{int(nnz.min())}-{int(nnz.max())}, launches "
+              f"{json.dumps(delta)}")
+        check(int(nnz.max()) <= OMP_T and bool(torch.isfinite(z).all())
+              and tuple(z.shape) == (N, K), f"omp {name}: codes")
+        for key, v in want.get(name, {}).items():
+            check(delta.get(key, 0) == v,
+                  f"omp {name} {key}: {delta.get(key, 0)} != {v}")
+        if name == "auto_tol":
+            frozen = nnz < OMP_T
+            over = float((rss_of[name][frozen] / tol).max())
+            print(f"[11] tol {tol:.6g}: {int(frozen.sum())} of {N} rows "
+                  f"froze before {OMP_T} atoms, their rss at most "
+                  f"{over:.6f} x tol")
+            check(0 < int(frozen.sum()) < N and over <= 1 + 1e-3
+                  and n_iter == OMP_T and delta.get("omp_select_f32") == OMP_T,
+                  "omp tol freeze")
+    counts = _cuda.launch_counts()
+    print("[11] omp main-run launch counts:", json.dumps(counts))
+    print("[11] fused against chol:")
+    check(omp_agree_at_scale(x, W, z_of["chol"], z_of["auto"], 11),
+          "fused and chol agree at the headline")
+    rel_bf16 = abs(float(rss_of["fused_bf16"].mean() / rss_of["auto"].mean())
+                   - 1.0)
+    print(f"[11] bf16 selection: mean rss {rel_bf16:.3e} relative from f32's "
+          f"(at most 5e-2)")
+    check(rel_bf16 <= 5e-2, "bf16 mean rss within 5e-2 of f32's")
+
+    # serving through the CLI, in chunks of CLI_CHUNK rows
+    rng = np.random.default_rng(11)
+    xc = rng.standard_normal((CLI_ROWS, D)).astype(np.float32)
+    solver = {"n_nonzero_coefs": OMP_T}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("X.npy", "W.npy", "Z.npy")]
+        np.save(paths[0], xc)
+        np.save(paths[1], W_np)
+        argv = sys.argv
+        sys.argv = ["lasso_tpu_torch", "encode", paths[0], paths[1], "-o",
+                    paths[2], "--algorithm", "omp", "--chunk-size",
+                    str(CLI_CHUNK), "--solver-args", json.dumps(solver)]
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        runpy.run_module("lasso_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        cli_counts = _cuda.launch_counts()
+        sys.argv = argv
+        zc = np.load(paths[2])
+    print(f"[11] CLI encode --algorithm omp, {CLI_ROWS} rows in chunks of "
+          f"{CLI_CHUNK}: {seconds:.3f} s, launch counts "
+          f"{json.dumps(cli_counts)}")
+    chunks = -(-CLI_ROWS // CLI_CHUNK)
+    for key, v in {"fused_omp_solve": chunks, "omp_select_f32": chunks * OMP_T,
+                   "omp_orth": chunks * OMP_T,
+                   "omp_backsub": chunks}.items():
+        check(cli_counts.get(key, 0) == v,
+              f"CLI {key}: {cli_counts.get(key, 0)} != {v}")
+    for lo, hi in ((0, CLI_CHUNK), (2 * CLI_CHUNK, CLI_ROWS)):
+        xd = torch.from_numpy(xc[lo:hi]).to(DEV)
+        direct = sparse_encode(xd, W, **kw)
+        ok, share, err, rel, _ = omp_equivalent(
+            xd, W, direct, torch.from_numpy(zc[lo:hi]).to(DEV))
+        print(f"[11] CLI rows {lo}:{hi} against a direct sparse_encode: "
+              f"supports equal on {share:.4f} of rows, codes max|err| "
+              f"{err:.3e}")
+        check(ok, f"omp CLI rows {lo}:{hi}")
+    check(zc.shape == (CLI_ROWS, K) and np.isfinite(zc).all()
+          and int((zc != 0).sum(axis=1).max()) <= OMP_T, "omp CLI codes")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -981,7 +1510,8 @@ def main():
     print(f"[0] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = _cuda.build(["fista", "cd", "group"], ptxas_verbose=True)
+    logs = _cuda.build(["fista", "cd", "group", "omp", "chol"],
+                       ptxas_verbose=True)
     print(f"[0] kernels built in {time.perf_counter() - t0:.2f} s")
     for line in "".join(logs.values()).splitlines():
         if "registers" in line or "spill" in line:
@@ -1007,6 +1537,10 @@ def main():
     counts = phase_group_slice(*group_problem())
     for kp in ("f32", "bf16"):
         rows.append({**group_rows[kp], "launches": counts[f"group_prox_{kp}"]})
+    omp_rows = phase_omp_kernels()
+    counts = phase_omp_slice(*omp_problem())
+    for name, row in omp_rows.items():
+        rows.append({**row, "launches": counts.get(name, 0)})
 
     print(json.dumps({"kernels": rows}))
     print(card)

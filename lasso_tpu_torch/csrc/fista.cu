@@ -27,7 +27,8 @@
 //                       advances t.
 //
 // Both are SIMT FP32 tiled products (128x128 block tile, 8x8 outputs per
-// thread, operands staged in shared memory). In bf16 mode each operand is
+// thread, operands staged in shared memory; csrc/tile_product.cuh, which
+// K2's product shares with csrc/omp.cu). In bf16 mode each operand is
 // rounded with __float2bfloat16_rn on its way into shared memory and the
 // sum stays FP32: a bf16 x bf16 product is exact in FP32, so this is
 // exactly "bf16 operands, f32 accumulate" (fused_ista.py:93-96). The f32
@@ -53,18 +54,9 @@
 #include <cstddef>
 
 #include "fista_math.cuh"
+#include "tile_product.cuh"
 
 namespace {
-
-constexpr int BM = 128;            // rows of the block tile (batch)
-constexpr int BN = 128;            // columns of the block tile
-constexpr int BK = 16;             // depth of one shared-memory stage
-constexpr int TM = 8;              // rows per thread
-constexpr int TN = 8;              // columns per thread
-constexpr int TY = BM / TM;        // 16 thread rows
-constexpr int TX = BN / TN;        // 16 thread columns
-constexpr int THREADS = TX * TY;   // 256
-constexpr int PAD = 4;             // spreads transposed stores over banks
 
 // Momentum coefficient of each row of the tile: the scalar scal[2], or the
 // restart coefficient of the row's t when t is given.
@@ -74,26 +66,6 @@ __device__ __forceinline__ void load_coefs(float* coef, const float* scal,
   if (tid < BM) {
     const int n = row0 + tid;
     coef[tid] = t == nullptr ? scal[2] : (n < N ? restart_coef(t[n]) : 0.f);
-  }
-}
-
-// acc += As^T Bs over one stage; thread (ty, tx) owns rows ty + TY*i and
-// columns tx + TX*j, so a warp reads consecutive shared-memory words.
-__device__ __forceinline__ void mac_stage(float (*As)[BM + PAD],
-                                          float (*Bs)[BN + PAD],
-                                          float (&acc)[TM][TN], int ty,
-                                          int tx) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + TY * i];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + TX * j];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
@@ -176,23 +148,7 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
 
   float acc[TM][TN] = {};
-  for (int d0 = 0; d0 < D; d0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int m = i / BK, kk = i % BK, n = row0 + m, d = d0 + kk;
-      float v = (n < N && d < D) ? r[(size_t)n * D + d] : 0.f;
-      if (BF16) v = round_bf16(v);
-      As[kk][m] = v;
-    }
-    for (int i = tid; i < BN * BK; i += THREADS) {
-      const int kk = i / BN, j = i % BN, d = d0 + kk, k = col0 + j;
-      float v = (d < D && k < K) ? w[(size_t)d * K + k] : 0.f;
-      if (BF16) v = round_bf16(v);
-      Bs[kk][j] = v;
-    }
-    __syncthreads();
-    mac_stage(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
+  product_rw<BF16>(r, w, As, Bs, acc, row0, col0, N, D, K);
 
   const float lr = scal[0], th_s = scal[1], scale = scal[3];
   float dsum = 0.f;

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``linear/sparse_encode.py``, with the same
 algorithm names, init modes and per-algorithm init defaults. ``'ista'``,
-``'cd'``, ``'cd-mod'`` and ``'group-ista'`` are ported; every other known
-name raises ``NotImplementedError`` naming its ROADMAP item, and an
-unknown name raises ``ValueError``.
+``'cd'``, ``'cd-mod'``, ``'group-ista'`` and ``'omp'`` are ported; every
+other known name raises ``NotImplementedError`` naming its ROADMAP item,
+and an unknown name raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ _init_defaults = {
 
 # where each algorithm that is not ported yet stands in ROADMAP.md queue A
 _NOT_PORTED = {
-    "omp": "A item 7",
     "gpsr": "A item 9",
     "iter-ridge": "A item 9",
     "interior-point": "A item 9",
@@ -83,7 +82,8 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
     the first two and refuses the row, and the other algorithms get them
     through the homogeneity wrappers below.
     ``generator`` seeds the ``'unif'`` init. ``return_iters=True``
-    returns ``(z, n_iter)``.
+    returns ``(z, n_iter)``. ``'omp'`` is the greedy L0 solver: it ignores
+    ``alpha`` and ``z0`` and takes ``n_nonzero_coefs`` / ``tol``.
     """
     from lasso_tpu_torch.linear import solvers
 
@@ -91,9 +91,10 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
     n_components = weight.shape[1]
 
     if algorithm == "omp":
-        raise NotImplementedError(
-            f"algorithm 'omp' is not ported yet "
-            f"(ROADMAP {_NOT_PORTED['omp']})")
+        # its budget is n_nonzero_coefs / tol: the alpha wrappers and the
+        # code initialization play no role
+        return solvers.orthogonal_matching_pursuit(
+            x, weight, return_iters=return_iters, **kwargs)
 
     a_row = per_feature_alpha_row(alpha, n_components, n_samples)
     if a_row is not None and algorithm == "group-ista":

@@ -54,3 +54,41 @@ def objective(x, W, z, alpha):
     z = np.asarray(z, np.float64)
     r = z @ np.asarray(W, np.float64).T - np.asarray(x, np.float64)
     return 0.5 * np.sum(r * r) + np.sum(np.asarray(alpha) * np.abs(z))
+
+
+def omp_problem(seed, n, d, k):
+    """Unit atoms W [d, k] and x [n, d], drawn as tests/test_fused_omp.py
+    draws them."""
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((d, k)).astype(np.float32)
+    W /= np.linalg.norm(W, axis=0, keepdims=True)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x, W
+
+
+def rss(x, z, W):
+    """Per-row squared residual of codes z."""
+    return np.sum(np.square(x - z @ W.T), axis=1)
+
+
+def assert_equivalent(x, W, za, zb, atol=2e-4):
+    """The fused OMP equivalence rule of tests/test_fused_omp.py:31-43:
+    codes atol 2e-4 on the rows whose supports agree; on the rows where a
+    near-tie flipped an atom, the per-row rss rtol 1e-3."""
+    same = ((za != 0) == (zb != 0)).all(axis=1)
+    np.testing.assert_allclose(zb[same], za[same], atol=atol)
+    if not same.all():
+        np.testing.assert_allclose(rss(x, zb, W)[~same],
+                                   rss(x, za, W)[~same], rtol=1e-3,
+                                   atol=1e-5)
+
+
+def assert_same_fit(x, W, za, zb):
+    """``_assert_same_fit`` of tests/test_omp.py:207-222: codes rtol 1e-4 /
+    atol 1e-5 when every support agrees, else the per-row rss rtol
+    1e-3."""
+    if ((za != 0) == (zb != 0)).all():
+        np.testing.assert_allclose(zb, za, rtol=1e-4, atol=1e-5)
+    else:
+        np.testing.assert_allclose(rss(x, zb, W), rss(x, za, W), rtol=1e-3,
+                                   atol=1e-5)

@@ -123,7 +123,8 @@ def test_cd_mod_vector_alpha_through_sparse_encode(rng, form):
 
 def test_other_devices_raise_and_omp_is_not_ported():
     """A tensor neither on the CPU nor on a card raises in both wrappers;
-    'omp' still names its ROADMAP item."""
+    an algorithm not ported yet ('gpsr': 'omp' is ported now) names its
+    ROADMAP item."""
     b = torch.zeros((8, 128), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfused.fused_cd_steps(b, b, torch.ones((8, 1), device="meta"),
@@ -136,4 +137,4 @@ def test_other_devices_raise_and_omp_is_not_ported():
             torch.zeros((4, 128), device="meta"),
             torch.ones((128,), device="meta"), 0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tencode(torch.zeros((2, 4)), torch.zeros((4, 3)), algorithm="omp")
+        tencode(torch.zeros((2, 4)), torch.zeros((4, 3)), algorithm="gpsr")

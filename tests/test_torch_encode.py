@@ -71,7 +71,7 @@ def test_sparse_encode_dispatch_errors(rng):
     with pytest.raises(ValueError, match="unknown algorithm"):
         sparse_encode(*args, algorithm="bogus")
     for name in ("gpsr", "iter-ridge", "interior-point", "split-bregman",
-                 "own", "omp"):
+                 "own"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sparse_encode(*args, algorithm=name)
     with pytest.raises(NotImplementedError):   # through the row rescaling

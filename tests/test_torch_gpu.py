@@ -1,6 +1,6 @@
-"""lasso_tpu_torch on a CUDA card: the kernels (FISTA, coordinate descent
-and the group prox) against their plain versions, and the solvers' fused
-paths against their CPU runs.
+"""lasso_tpu_torch on a CUDA card: the kernels (FISTA, coordinate descent,
+the group prox, fused OMP and the Cholesky append) against their plain
+versions, and the solvers' fused paths against their CPU runs.
 
 Every test here is marked ``gpu`` and skips where there is no card. This
 file imports neither JAX nor the JAX package, so that it runs on a
@@ -14,13 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from lasso_tpu_torch.linear.solvers import group_ista, ista
+from lasso_tpu_torch.linear.solvers import (group_ista, ista,
+                                            orthogonal_matching_pursuit)
 from lasso_tpu_torch.ops import _cuda
+from lasso_tpu_torch.ops import batched_cholesky as T_B
 from lasso_tpu_torch.ops import fused_cd as T_CD
 from lasso_tpu_torch.ops import fused_group as T_G
 from lasso_tpu_torch.ops import fused_ista as T
+from lasso_tpu_torch.ops import fused_omp as T_O
 
-from _torch_port import make_problem, n, t
+from _torch_port import (assert_equivalent, assert_same_fit, make_problem, n,
+                         omp_problem, t)
 
 pytestmark = pytest.mark.gpu
 
@@ -206,3 +210,83 @@ def test_group_ista_on_card_matches_cpu(kw):
     assert out["cuda"][1] == out["cpu"][1]
     np.testing.assert_allclose(n(out["cuda"][0]), n(out["cpu"][0]),
                                atol=1e-4)
+
+
+def _scatter(idx, z_s, k):
+    z = torch.zeros((idx.shape[0], k), device=z_s.device)
+    return n(z.scatter_add_(1, idx.long(), z_s))
+
+
+@pytest.mark.parametrize("kp", ["f32", "bf16"])
+def test_fused_omp_kernels_match_plain(kp):
+    """K6a, K6b and K6c (one fused_omp_solve) against the plain versions
+    on the card: N not a multiple of the 128-row tile, T not of 8, rows
+    that freeze under tol mid-run, and a duplicated atom. Validity equal;
+    the codes by the equivalence rule of tests/test_fused_omp.py (the
+    product sums in another order, so a near-tie may flip an atom)."""
+    _need_card()
+    x, W = omp_problem(9, 200, 128, 384)
+    W[:, 383] = W[:, 0]
+    z = np.zeros((8, 384), np.float32)
+    z[:, 1:4] = np.random.default_rng(1).standard_normal((8, 3))
+    x[:8] = z @ W.T
+    xc, Wc = t(x).cuda(), t(W).cuda()
+    before = _cuda.launch_counts()
+    got = T_O.fused_omp_solve(xc, Wc, 13, tol=1e-6, kernel_precision=kp)
+    want = T_O.fused_omp_solve_plain(xc, Wc, 13, tol=1e-6,
+                                     kernel_precision=kp)
+    after = _cuda.launch_counts()
+    np.testing.assert_array_equal(n(got[1]), n(want[1]))
+    assert n(got[1])[:8].sum(axis=1).max() <= 4
+    assert np.isfinite(n(got[2])).all()
+    assert_equivalent(x, W, _scatter(want[0], want[2], 384),
+                      _scatter(got[0], got[2], 384))
+    assert after[f"omp_select_{kp}"] - before[f"omp_select_{kp}"] == 13
+    assert after["omp_orth"] - before["omp_orth"] == 13
+    assert after["omp_backsub"] - before["omp_backsub"] == 1
+
+
+def test_chol_append_kernel_matches_plain():
+    """K7 against its plain version on the card, appending the rows of
+    random PD systems one at a time from the identity, in place and into a
+    fresh buffer, with every third sample appending identity rows (a
+    frozen OMP sample): V and z rtol 2e-4 / atol 1e-5."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    T, B = 16, 200
+    A = rng.standard_normal((B, T, T)).astype(np.float32)
+    M = A @ np.swapaxes(A, 1, 2) + T * np.eye(T, dtype=np.float32)[None]
+    M[::3] = np.eye(T, dtype=np.float32)
+    rhs = rng.standard_normal((T, B)).astype(np.float32)
+    V = torch.eye(T, device="cuda")[:, :, None].repeat(1, 1, B)
+    Vp = V.clone()
+    before = T_B.CHOL_APPEND_SOLVE.launches
+    for k in range(T):
+        g = np.zeros((T, B), np.float32)
+        g[:k + 1] = M[:, k, :k + 1].T
+        b = np.zeros((T, B), np.float32)
+        b[:k + 1] = rhs[:k + 1]
+        gc, bc = t(g).cuda(), t(b).cuda()
+        fresh, z_f = T_B.cholesky_append_solve_lanes(V, gc, bc, k)
+        _, z = T_B.cholesky_append_solve_lanes(V, gc, bc, k, out=V)
+        Vp, z_p = T_B.cholesky_append_solve_lanes_plain(Vp, gc, bc, k)
+        for a, c in ((V, Vp), (fresh, Vp), (z, z_p), (z_f, z_p)):
+            np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
+        assert not bool(z[k + 1:].any())
+    assert T_B.CHOL_APPEND_SOLVE.launches - before == 2 * T
+
+
+def test_omp_on_card_matches_cpu():
+    """'fused' and 'chol' on the card against the same solve on the CPU
+    (plain versions), with a tol freeze: n_iter equal, codes by the JAX
+    tests' rules."""
+    _need_card()
+    x, W = omp_problem(11, 64, 128, 256)
+    x[:4] = 0.0
+    for solver, rule in (("fused", assert_equivalent),
+                         ("chol", assert_same_fit)):
+        out = {dev: orthogonal_matching_pursuit(
+            t(x).to(dev), t(W).to(dev), 12, tol=1e-3, solver=solver,
+            use_pallas=True, return_iters=True) for dev in ("cpu", "cuda")}
+        assert out["cuda"][1] == out["cpu"][1]
+        rule(x, W, n(out["cpu"][0]), n(out["cuda"][0]))
