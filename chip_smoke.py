@@ -83,12 +83,19 @@ before the last line is printed.
    row, since the pivot floor leaves the split of weight across a
    dependent pair to rounding; K7 ``chol_append_solve`` of ``csrc/chol.cu``
    over T appends from the identity (T=16 and 64, in place and into a
-   fresh buffer, every fifth system the identity) at rtol 2e-4 / atol
+   new factor, every fifth system the identity) at rtol 2e-4 / atol
    1e-5. Then each entry at the headline width (16384x512->2048, T=64,
-   ``benchmarks/omp_fused_bench.py``'s problem): one solve with CUDA
-   events around every launch, kernels and plain versions, held to each
-   other by the headline rule below, and K7 over 64 appends, in place
-   against a fresh buffer at k=32.
+   ``benchmarks/omp_fused_bench.py``'s problem): one solve in f32 and
+   one in bf16 with CUDA events around every launch, each held to the
+   plain solve of its precision by the headline rule below; K6a's
+   step-0 partials (rtol 1e-5 / atol 1e-6), K6b's step 32 from one state
+   (idx, valid and masks equal; r, q_k, R's column, d_k at rtol 2e-4 /
+   atol 1e-5) and K6c on the f32 solve's state (rtol 2e-4 / atol 1e-5)
+   against their plain versions; K7 over 64 appends against its plain
+   version (rtol 2e-4 / atol 1e-5), and in place against a new factor at
+   k=32. The plain versions are timed by CUDA-graph replays, which leave
+   out the host's time to enqueue their many small ops; K6c's library
+   time is ``torch.linalg.solve_triangular`` on the same R and d.
 11. The OMP slice at that width through ``sparse_encode(algorithm='omp',
    n_nonzero_coefs=64)``: 'auto' (must take the fused kernels: 64
    ``omp_select_f32`` and ``omp_orth`` launches and one ``omp_backsub``),
@@ -99,10 +106,12 @@ before the last line is printed.
    ``encode --algorithm omp`` through the CLI on 40000 rows in chunks of
    16384, against direct ``sparse_encode`` calls (the equivalence rule).
    The headline rule for two fits of 16384 rows: codes atol 2e-4 on the
-   rows whose supports agree, and at most 64 rows that part, each of them
-   in both fits an OMP solution up to near-ties in float64 (an order of
-   its support in which every atom scores within 1e-4 relative of the
-   best, and codes within 2e-4 of the least-squares fit). The JAX tests'
+   rows whose supports agree, and at most 32 rows that part (three and a
+   half times the most measured), each of them in both fits an OMP
+   solution up to near-ties in float64 (an order of its support in which
+   every atom scores within 1e-4 relative of the best, for a bf16 fit
+   within 1e-3 with bf16-rounded operands, and codes within 2e-4 of the
+   least-squares fit). The JAX tests'
    rss fallback is printed but not held there: at T=64 two greedy paths
    that part at a near-tie go on apart, and their rss differ by more than
    1e-3 (PERF.md).
@@ -114,6 +123,7 @@ name and power limit as nvidia-smi gives them; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import os
@@ -163,6 +173,15 @@ OMP_REPLACES = "lasso_tpu/ops/fused_omp.py:308"
 CHOL_SOURCE = "lasso_tpu_torch/csrc/chol.cu"
 CHOL_REPLACES = "lasso_tpu/ops/batched_cholesky.py:290"
 OMP_T = 64                                      # benchmarks/omp_fused_bench.py
+# rows of 16384 that two OMP fits at the headline may part on: the most
+# measured is 9 (the bf16 kernels against their plain version), and the
+# cap three and a half times that (PERF.md, PR 5)
+OMP_PARTING = 32
+# the near-tie certificate's relative gap for each selection precision:
+# f32 paths part at gaps near 1e-6; in bf16 the kernel's and the float64
+# residual round to bf16 differently in a few elements, which moved a
+# score by up to 2.0e-4 (PERF.md, PR 5), here with five times that
+CERT_EPS = {"f32": 1e-4, "bf16": 1e-3}
 PATH_N, SCREEN_ROWS, SCREEN_CHUNK = 4096, 8192, 2048
 DEV = torch.device("cuda")
 DL = importlib.import_module("lasso_tpu_torch.linear.dict_learning")
@@ -1051,16 +1070,24 @@ def omp_equivalent(x, W, za, zb):
             rel * 1e-3, torch.nonzero(~same)[:, 0])
 
 
-def omp_certificate(x, W, z, rows, eps=1e-4):
+def omp_certificate(x, W, z, rows, kp="f32"):
     """Whether each of ``rows`` of the codes z is an OMP solution up to
     near-ties, in float64: some order of the row's support must take, at
     every step, an atom that scores within a relative ``eps`` of the best
     unselected atom on the least-squares residual of the atoms before it
     (where two support atoms tie, both orders are tried), and the codes
-    must be the least-squares fit on the support. Returns (the largest gap
-    of the orders found, 1.0 where a row has none; the largest code
-    error). The solves here are the check's own float64 reference."""
+    must be the least-squares fit on the support. ``eps`` is
+    ``CERT_EPS[kp]``; with ``kp='bf16'`` the scores are those of the bf16
+    selection: the residual and W rounded to bf16, the products summed in
+    float64. The depth-first search over
+    orders stops after 4 |support| visits; a row that runs out counts as
+    failed (gap 1.0), so the limit bounds the check's time and can only
+    fail a row, never pass one. Returns (the largest gap of the orders
+    found, the largest code error). The solves here are the check's own
+    float64 reference."""
+    eps = CERT_EPS[kp]
     W64 = W.double()
+    Ws = (W.to(torch.bfloat16) if kp == "bf16" else W).double()
     inv = 1.0 / W64.norm(dim=0)
     gap, cerr = 0.0, 0.0
     for i in rows.tolist():
@@ -1069,8 +1096,8 @@ def omp_certificate(x, W, z, rows, eps=1e-4):
         budget = [4 * len(support)]
 
         def fit(chosen):
-            Ws = W64[:, chosen]
-            return torch.linalg.solve(Ws.T @ Ws, Ws.T @ x64)
+            Wc = W64[:, chosen]
+            return torch.linalg.solve(Wc.T @ Wc, Wc.T @ x64)
 
         def search(chosen, worst):
             """An eps-greedy order extending ``chosen``, or None."""
@@ -1080,7 +1107,9 @@ def omp_certificate(x, W, z, rows, eps=1e-4):
             if budget[0] < 0:
                 return None
             r = x64 - W64[:, chosen] @ fit(chosen) if chosen else x64
-            score = (r @ W64).abs() * inv
+            if kp == "bf16":
+                r = r.float().to(torch.bfloat16).double()
+            score = (r @ Ws).abs() * inv
             score[chosen] = -1.0
             best = float(score.max())
             cands = sorted((a for a in support if a not in chosen),
@@ -1101,26 +1130,29 @@ def omp_certificate(x, W, z, rows, eps=1e-4):
     return gap, cerr
 
 
-def omp_agree_at_scale(x, W, za, zb, label):
-    """Two OMP fits at the headline width: codes within 2e-4 on the rows
-    whose supports agree, and at most 64 rows that part, each of them in
-    both fits an OMP solution up to near-ties (``omp_certificate``: gap at
-    most 1e-4, codes within 2e-4 of the float64 least-squares fit). The
-    JAX tests' rss fallback is printed: at T=64 two greedy paths that part
-    at a near-tie go on apart for the remaining steps, and their rss can
-    differ by more than its 1e-3."""
+def omp_agree_at_scale(x, W, za, zb, label, kp="f32"):
+    """Two OMP fits at the headline width, selecting in ``kp``: codes
+    within 2e-4 on the rows whose supports agree, and at most
+    ``OMP_PARTING`` rows that part, each of them in both fits an OMP
+    solution up to near-ties (``omp_certificate``: gap at most
+    ``CERT_EPS[kp]``, codes within 2e-4 of the float64 least-squares
+    fit). The JAX tests' rss fallback is printed: at T=64 two greedy paths
+    that part at a near-tie go on apart for the remaining steps, and their
+    rss can differ by more than its 1e-3."""
     ok, share, err, rel, part = omp_equivalent(x, W, za, zb)
     n_part = len(part)
-    cert = [omp_certificate(x, W, z, part) if n_part <= 64 else (1.0, 1.0)
-            for z in (za, zb)]
+    cert = [omp_certificate(x, W, z, part, kp) if n_part <= OMP_PARTING
+            else (1.0, 1.0) for z in (za, zb)]
     gap, cerr = max(c[0] for c in cert), max(c[1] for c in cert)
     print(f"[{label}] supports equal on {share:.6f} of rows, codes max|err| "
-          f"{err:.3e} (2e-4); {n_part} rows part (at most 64): largest "
-          f"near-tie gap {gap:.3e} (1e-4), codes against their float64 "
-          f"least-squares fit {cerr:.3e} (2e-4); the JAX tests' rss rule on "
-          f"those rows {'holds' if ok else 'does not hold'}: rss max rel "
-          f"err {rel:.3e} (1e-3)")
-    return err <= 2e-4 and n_part <= 64 and gap <= 1e-4 and cerr <= 2e-4
+          f"{err:.3e} (2e-4); {n_part} rows part (at most {OMP_PARTING}): "
+          f"largest {kp} near-tie gap {gap:.3e} ({CERT_EPS[kp]:g}), codes "
+          f"against their float64 least-squares fit {cerr:.3e} (2e-4); the "
+          f"JAX tests' rss rule on those rows "
+          f"{'holds' if ok else 'does not hold'}: rss max "
+          f"rel err {rel:.3e} (1e-3)")
+    return (err <= 2e-4 and n_part <= OMP_PARTING and gap <= CERT_EPS[kp]
+            and cerr <= 2e-4)
 
 
 def omp_case(n, d, k, T, seed, duplicate=False):
@@ -1141,33 +1173,67 @@ def omp_case(n, d, k, T, seed, duplicate=False):
     return x, W
 
 
-def timed_fused_solve(x, W, T, kp, plain=False):
-    """One fused OMP solve through its three entries (the kernels, or
-    their plain versions), with CUDA events around every launch, enqueued
-    behind ``hold_the_card`` (the plain versions' many small launches may
-    still outrun it, and then their times include the host). Returns
-    (idx, valid, z_s, per-step select ms, per-step orth ms, backsub ms)."""
-    sel_f, orth_f, back_f = ((O.omp_select_plain, O.omp_orth_plain,
-                              O.omp_backsub_plain) if plain else
-                             (O.omp_select, O.omp_orth, O.omp_backsub))
+def graph_ms(fn, reps=3):
+    """Card time of one call of ``fn`` without its host share: the call's
+    launches captured once in a CUDA graph, then the mean of ``reps``
+    replays between two events. For plain versions made of many small
+    PyTorch ops, which Python enqueues more slowly than the card runs
+    them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / reps
+
+
+def clone_state(state):
+    """A copy of a fused OMP solve's state."""
+    return O.OmpState(**{f.name: getattr(state, f.name).clone()
+                         for f in dataclasses.fields(O.OmpState)})
+
+
+def timed_fused_solve(x, W, T, kp):
+    """One fused OMP solve through its three kernels, with CUDA events
+    around every launch, enqueued behind ``hold_the_card``. Returns (the
+    final state, the codes [N, K], per-step select ms, per-step orth ms,
+    backsub ms)."""
     invn, wt = O.inverse_norms(W), W.T.contiguous()
     state = O.omp_init_state(x, W.shape[1], T)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * T + 2)]
     hold_the_card()
     for k in range(T):
         ev[2 * k].record()
-        sel_f(state, W, invn, kp)
+        O.omp_select(state, W, invn, kp)
         ev[2 * k + 1].record()
-        orth_f(state, wt, k)
+        O.omp_orth(state, wt, k)
     ev[2 * T].record()
-    z_t = back_f(state)
+    z_t = O.omp_backsub(state)
     ev[2 * T + 1].record()
     torch.cuda.synchronize()
     sel_ms = [ev[2 * k].elapsed_time(ev[2 * k + 1]) for k in range(T)]
     orth_ms = [ev[2 * k + 1].elapsed_time(ev[2 * k + 2]) for k in range(T)]
-    valid = state.valid > 0
-    return (state.idx, valid, torch.where(valid, z_t, 0.0), sel_ms, orth_ms,
+    z_s = torch.where(state.valid > 0, z_t, 0.0)
+    return (state, omp_codes(state.idx, z_s, W.shape[1]), sel_ms, orth_ms,
             ev[2 * T].elapsed_time(ev[2 * T + 1]))
+
+
+def rel_excess(a, c, rtol):
+    """max(|a - c| - rtol |c|): at most atol where a and c agree within
+    rtol / atol."""
+    return float(((a - c).abs() - rtol * c.abs()).max())
 
 
 def pd_rows(B_, T, seed):
@@ -1236,39 +1302,40 @@ def phase_omp_kernels():
             _, z = B.cholesky_append_solve_lanes(V, g, b, kk, out=V)
             Vp, z_p = B.cholesky_append_solve_lanes_plain(Vp, g, b, kk)
             for a, c in ((V, Vp), (fresh, Vp), (z, z_p), (z_f, z_p)):
-                worst = max(worst, float(((a - c).abs() - 2e-4 * c.abs())
-                                         .max()))
+                worst = max(worst, rel_excess(a, c, 2e-4))
         print(f"[10] chol_append_solve T={T} B={B_}, {T} appends in place "
-              f"and into a fresh buffer: max(|err| - 2e-4 |plain|) "
+              f"and into a new factor: max(|err| - 2e-4 |plain|) "
               f"{worst:.3e} (atol 1e-5)")
         check(worst <= 1e-5, f"chol_append_solve T={T}")
     print("[10] launch counts:", json.dumps(_cuda.launch_counts()))
 
-    # alone at the headline width: one solve with events around every
-    # launch, kernels and plain versions
+    # at the headline width: one solve with events around every launch in
+    # each precision, held to the plain solve by the headline rule
     x, W = (torch.from_numpy(a).to(DEV) for a in omp_problem())
     nK = K // O.TILE
     rows = {}
-    per = {}
-    for kp in ("f32", "bf16"):
-        per[kp] = timed_fused_solve(x, W, OMP_T, kp)
-        per[kp + "_plain"] = timed_fused_solve(x, W, OMP_T, kp, plain=True)
-    kern, plain = per["f32"], per["f32_plain"]
-    print(f"[10] fused OMP f32 at {N}x{D}->{K} T={OMP_T}, kernels against "
-          f"plain versions:")
-    check(omp_agree_at_scale(x, W, omp_codes(plain[0], plain[2], K),
-                             omp_codes(kern[0], kern[2], K), 10),
-          "fused OMP f32 at the headline against the plain version")
-    # K6a: r and W read, invn, the mask, partials written; 2 N D K ops
+    solve = {kp: timed_fused_solve(x, W, OMP_T, kp) for kp in ("f32", "bf16")}
+    for kp, (_, codes, *_) in solve.items():
+        idx, _, z_s = O.fused_omp_solve_plain(x, W, OMP_T, kernel_precision=kp)
+        print(f"[10] fused OMP {kp} at {N}x{D}->{K} T={OMP_T}, kernels "
+              f"against plain versions:")
+        check(omp_agree_at_scale(x, W, omp_codes(idx, z_s, K), codes, 10, kp),
+              f"fused OMP {kp} at the headline against the plain version")
+        del idx, z_s
+    invn, wt = O.inverse_norms(W), W.T.contiguous()
+    # K6a at step 0: the partials against the plain version's (rtol 1e-5,
+    # atol 1e-6); r and W read, invn, the mask, partials written; 2 N D K
+    # ops. Its plain version does the same work at every step: timed once.
     state = O.omp_init_state(x, K, OMP_T)
-    invn = O.inverse_norms(W)
     for kp in ("f32", "bf16"):
         lib = torch.bfloat16 if kp == "bf16" else torch.float32
         rb, Wb = state.r.to(lib), W.to(lib)
         O.omp_select(state, W, invn, kp)
-        got = state.pval.clone()
+        got_v, got_i = state.pval.clone(), state.pidx.clone()
         O.omp_select_plain(state, W, invn, kp)
-        e = float((got - state.pval).abs().max())
+        e = float((got_v - state.pval).abs().max())
+        worst = rel_excess(got_v, state.pval, 1e-5)
+        same_i = float((got_i == state.pidx).float().mean())
         t_bytes = (4 * (N * D + D * K + K) + N * K + 8 * N * nK) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * N * D * K / PEAK_FLOPS[kp] * 1e3
@@ -1276,87 +1343,139 @@ def phase_omp_kernels():
             "name": f"omp_select_{kp}", "route": "cuda",
             "source": OMP_SOURCE, "replaces": OMP_REPLACES,
             "launches": None, "max_abs_err": e,
-            "ms": sum(per[kp][3]) / OMP_T,
-            "plain_ms": sum(per[kp + "_plain"][3]) / OMP_T,
+            "ms": sum(solve[kp][2]) / OMP_T,
+            "plain_ms": graph_ms(lambda: O.omp_select_plain(state, W, invn,
+                                                            kp)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": cuda_ms(lambda: torch.matmul(rb, Wb))}
         print(f"[10] {json.dumps(rows[f'omp_select_{kp}'])} (ms: mean of "
-              f"the {OMP_T} launches of one solve; library: torch.matmul "
-              f"r W in {lib}; max_abs_err: the step-0 partial scores)")
-    # K6b at step k: partials, r in and out, k rows of Q read, q_k, the
-    # atom (W^T once), R column k and the per-row slots; 4 k D + 6 D ops
-    # a row; its ms and bound are the means over the solve's steps
+              f"the {OMP_T} launches of one solve; plain_ms: CUDA-graph "
+              f"replays; library: torch.matmul r W in {lib}; max_abs_err: "
+              f"the step-0 partial scores, max(|err| - 1e-5 |plain|) "
+              f"{worst:.3e} (atol 1e-6), atoms equal on {same_i:.6f})")
+        check(worst <= 1e-6, f"omp_select_{kp} partials at the headline")
+    del state, rb, Wb
+    # K6b at step T / 2 from one state: the kernel on it, the plain
+    # version on a copy; idx, valid, the masks equal, r, q_k, R's column
+    # and d_k at rtol 2e-4 / atol 1e-5
+    k2 = OMP_T // 2
+    st = O.omp_init_state(x, K, OMP_T)
+    for kk in range(k2):
+        O.omp_select(st, W, invn, "f32")
+        O.omp_orth(st, wt, kk)
+    O.omp_select(st, W, invn, "f32")
+    twin = clone_state(st)
+    O.omp_orth(st, wt, k2)
+    O.omp_orth_plain(twin, wt, k2)
+    exact = all(torch.equal(a, c) for a, c in (
+        (st.idx[:, k2], twin.idx[:, k2]), (st.valid[:, k2], twin.valid[:, k2]),
+        (st.active, twin.active), (st.sel, twin.sel)))
+    pairs = ((st.r, twin.r), (st.Q[:, k2], twin.Q[:, k2]),
+             (st.R[:, k2, :k2 + 1], twin.R[:, k2, :k2 + 1]),
+             (st.d[:, k2], twin.d[:, k2]))
+    e_orth = max(float((a - c).abs().max()) for a, c in pairs)
+    worst = max(rel_excess(a, c, 2e-4) for a, c in pairs)
+    del st, twin, pairs
+    check(exact and worst <= 1e-5, f"omp_orth at step {k2}")
+    # K6b's ms and bound are means over the steps of the f32 solve: at
+    # step k it reads the partials, r, k rows of Q, the atom (W^T once),
+    # writes r, q_k, R column k and the per-row slots; 4 k D + 6 D ops a
+    # row. Its plain version at every step on a copy of the final state.
+    kern = solve["f32"]
+    scratch = clone_state(kern[0])
+    plain_orth = [graph_ms(lambda: O.omp_orth_plain(scratch, wt, kk))
+                  for kk in range(OMP_T)]
+    del scratch
     nbytes = sum(4 * (N * (2 * D + kk * D + D + kk + 1 + 4) + K * D)
                  + 8 * N * nK + N for kk in range(OMP_T)) / OMP_T
     ops = sum(N * (4 * kk * D + 6 * D) for kk in range(OMP_T)) / OMP_T
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS["f32"] * 1e3
-    same = torch.all(kern[0] == plain[0], dim=1)
-    e_orth = float((kern[2] - plain[2])[same].abs().max()) \
-        if bool(same.any()) else float("nan")
     rows["omp_orth"] = {
         "name": "omp_orth", "route": "cuda", "source": OMP_SOURCE,
         "replaces": OMP_REPLACES, "launches": None, "max_abs_err": e_orth,
-        "ms": sum(kern[4]) / OMP_T, "plain_ms": sum(plain[4]) / OMP_T,
+        "ms": sum(kern[3]) / OMP_T, "plain_ms": sum(plain_orth) / OMP_T,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None}
     print(f"[10] {json.dumps(rows['omp_orth'])} (means over the {OMP_T} "
-          f"steps of one f32 solve; at steps 0, {OMP_T // 2}, {OMP_T - 1}: "
-          f"{kern[4][0]:.4f}, {kern[4][OMP_T // 2]:.4f}, {kern[4][-1]:.4f} "
-          f"ms; "
-          f"max_abs_err: z_s on rows with equal supports; no PyTorch call "
-          f"does Gram-Schmidt with the freeze: library null)")
-    # K6c: R's upper triangle, d and valid read, z written
+          f"steps of one f32 solve; at steps 0, {k2}, {OMP_T - 1}: "
+          f"{kern[3][0]:.4f}, {kern[3][k2]:.4f}, {kern[3][-1]:.4f} ms, plain "
+          f"{plain_orth[0]:.4f}, {plain_orth[k2]:.4f}, {plain_orth[-1]:.4f} "
+          f"ms (CUDA-graph replays); max_abs_err: r, q_k, R's column and d_k "
+          f"at step {k2} from one state, max(|err| - 2e-4 |plain|) "
+          f"{worst:.3e} (atol 1e-5), idx, valid and masks equal {exact}; no "
+          f"PyTorch call does Gram-Schmidt with the freeze: library null)")
+    # K6c on the f32 solve's final state against its plain version (rtol
+    # 2e-4 / atol 1e-5) and the library's triangular solve: R's upper
+    # triangle, d and valid read, z written. The state keeps R transposed
+    # (row j holds column j), a lower triangle: z^T L = d^T.
+    fin = kern[0]
+    valid = fin.valid > 0
+    z_k, z_p = O.omp_backsub(fin), O.omp_backsub_plain(fin)
+    e_back = float((z_k - z_p).abs().max())
+    worst = rel_excess(z_k, z_p, 2e-4)
+    check(worst <= 1e-5, "omp_backsub at the headline")
+
+    def library_backsub():
+        return torch.linalg.solve_triangular(fin.R, fin.d[:, None, :],
+                                             upper=False, left=False)[:, 0]
+
+    e_lib = float((torch.where(valid, library_backsub(), 0.0) - z_k)
+                  .abs().max())
     t_bytes = 4 * N * (OMP_T * (OMP_T + 1) // 2 + 3 * OMP_T) \
         / HBM_BYTES_PER_S * 1e3
     t_ops = N * OMP_T * (OMP_T + 1) / PEAK_FLOPS["f32"] * 1e3
     rows["omp_backsub"] = {
         "name": "omp_backsub", "route": "cuda", "source": OMP_SOURCE,
-        "replaces": OMP_REPLACES, "launches": None, "max_abs_err": e_orth,
-        "ms": kern[5], "plain_ms": plain[5],
+        "replaces": OMP_REPLACES, "launches": None, "max_abs_err": e_back,
+        "ms": kern[4], "plain_ms": graph_ms(lambda: O.omp_backsub_plain(fin)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}
+        "library_ms": cuda_ms(library_backsub)}
     print(f"[10] {json.dumps(rows['omp_backsub'])} (one launch a solve; "
-          f"torch.linalg.solve_triangular is not used: library null)")
+          f"plain_ms: CUDA-graph replays; max_abs_err: z on the f32 solve's "
+          f"state, max(|err| - 2e-4 |plain|) {worst:.3e} (atol 1e-5); "
+          f"library: torch.linalg.solve_triangular on the same R and d, "
+          f"timed only, {e_lib:.3e} from the kernel)")
+    del solve, kern, fin, z_k, z_p
 
-    # K7 at B = N, T = 64: the appends of one solve from the identity,
-    # each timed with events; in place against a fresh buffer at k = T / 2
+    # K7 at B = N, T = 64: the appends of one solve from the identity, in
+    # place, each timed with events; the plain version step by step on its
+    # own factor (rtol 2e-4 / atol 1e-5), timed by graph replays
     M, rhs = pd_rows(N, OMP_T, seed=7)
     gb = [append_rows(M, rhs, kk) for kk in range(OMP_T)]
     del M
-
-    def appends(fn, in_place):
-        """The T appends from the identity, enqueued back to back with an
-        event between launches; returns (V, the z of every step, ms of
-        every step)."""
-        V = torch.eye(OMP_T, device=DEV)[:, :, None].repeat(1, 1, N)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(OMP_T + 1)]
-        zs = []
-        hold_the_card()
-        ev[0].record()
-        for kk, (g, b) in enumerate(gb):
-            V, z = fn(V, g, b, kk, out=V) if in_place else fn(V, g, b, kk)
-            ev[kk + 1].record()
-            zs.append(z)
-        torch.cuda.synchronize()
-        return V, zs, [ev[kk].elapsed_time(ev[kk + 1]) for kk in range(OMP_T)]
-
-    V, z_k, ms_k = appends(B.cholesky_append_solve_lanes, True)
-    _, z_p, pms_k = appends(B.cholesky_append_solve_lanes_plain, False)
-    errs = [float((a - b).abs().max()) for a, b in zip(z_k, z_p)]
-    del z_k, z_p
-    # step T / 2 again, in place against a fresh buffer (the timing only:
-    # the kernel reads rows below k and writes row k)
-    k2 = OMP_T // 2
+    V = torch.eye(OMP_T, device=DEV)[:, :, None].repeat(1, 1, N)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(OMP_T + 1)]
+    z_k = []
+    hold_the_card()
+    ev[0].record()
+    for kk, (g, b) in enumerate(gb):
+        V, z = B.cholesky_append_solve_lanes(V, g, b, kk, out=V)
+        ev[kk + 1].record()
+        z_k.append(z)
+    torch.cuda.synchronize()
+    ms_k = [ev[kk].elapsed_time(ev[kk + 1]) for kk in range(OMP_T)]
+    Vp = torch.eye(OMP_T, device=DEV)[:, :, None].repeat(1, 1, N)
+    err, worst, pms_k = 0.0, 0.0, []
+    for kk, (g, b) in enumerate(gb):
+        pms_k.append(graph_ms(
+            lambda: B.cholesky_append_solve_lanes_plain(Vp, g, b, kk)))
+        Vp, z_p = B.cholesky_append_solve_lanes_plain(Vp, g, b, kk)
+        err = max(err, float((z_k[kk] - z_p).abs().max()))
+        worst = max(worst, rel_excess(z_k[kk], z_p, 2e-4))
+    err = max(err, float((V - Vp).abs().max()))
+    worst = max(worst, rel_excess(V, Vp, 2e-4))
+    del z_k, Vp
+    check(worst <= 1e-5, f"chol_append_solve at B={N}")
+    # step T / 2 again: in place, and into a new factor (the wrapper with
+    # no out: a copy of V, then the in-place launch)
     g2, b2 = gb[k2]
     in_place = cuda_ms(lambda: B.cholesky_append_solve_lanes(
         V, g2, b2, k2, out=V))
-    fresh = torch.empty_like(V)
-    out_of_place = cuda_ms(lambda: B.cholesky_append_solve_lanes(
-        V, g2, b2, k2, out=fresh))
+    new_factor = cuda_ms(lambda: B.cholesky_append_solve_lanes(V, g2, b2, k2))
     # the live block: V's lower triangle in rows < k, g and b to k, row k
     # and z written; y, u, t and z take 2 (k(k+1) + (k+1)(k+2)) ops a row
     nbytes = sum(4 * N * (kk * (kk + 1) // 2 + 2 * (kk + 1) + 2 * OMP_T)
@@ -1368,18 +1487,19 @@ def phase_omp_kernels():
     rows["chol_append_solve"] = {
         "name": "chol_append_solve", "route": "cuda", "source": CHOL_SOURCE,
         "replaces": CHOL_REPLACES, "launches": None,
-        "max_abs_err": max(errs), "ms": sum(ms_k) / OMP_T,
+        "max_abs_err": err, "ms": sum(ms_k) / OMP_T,
         "plain_ms": sum(pms_k) / OMP_T, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None}
     print(f"[10] {json.dumps(rows['chol_append_solve'])} (means over the "
-          f"{OMP_T} appends from the identity at B={N}; at steps 0, "
-          f"{OMP_T // 2}, {OMP_T - 1}: {ms_k[0]:.4f}, {ms_k[OMP_T // 2]:.4f}, "
-          f"{ms_k[-1]:.4f} ms; no PyTorch call "
-          f"appends to an inverse factor: library null)")
+          f"{OMP_T} appends from the identity at B={N}; at steps 0, {k2}, "
+          f"{OMP_T - 1}: {ms_k[0]:.4f}, {ms_k[k2]:.4f}, {ms_k[-1]:.4f} ms; "
+          f"plain_ms: CUDA-graph replays; max_abs_err: z of every step and "
+          f"the final V, max(|err| - 2e-4 |plain|) {worst:.3e} (atol 1e-5); "
+          f"no PyTorch call appends to an inverse factor: library null)")
     print(f"[10] chol_append_solve at k={k2}: {in_place:.4f} ms in place "
-          f"(row k written), {out_of_place:.4f} ms into a fresh buffer "
-          f"(every row written)")
+          f"(row k written), {new_factor:.4f} ms into a new factor (a copy "
+          f"of V, then the in-place launch)")
     return rows
 
 

@@ -40,10 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # the C entry of csrc/chol.cu
 CHOL_APPEND_SOLVE = _cuda.CudaKernel("chol", "chol_append_solve",
-                                     [_P] * 5 + [_I] * 3 + [_P])
-# K7 keeps y (then t) of a block's 32 samples in shared memory: (T + 8) x 32
-# floats within the 227 KB of one H100 block
-_MAX_T = 227 * 1024 // (32 * 4) - 8
+                                     [_P] * 4 + [_I] * 3 + [_P])
+# K7 keeps y (then t) and the new row of a block's 32 samples in shared
+# memory: (2 T + 8) x 32 floats within the 227 KB of one H100 block
+_MAX_T = (227 * 1024 // (32 * 4) - 8) // 2
 
 
 def supports_lanes_append(T, B, dtype):
@@ -62,9 +62,9 @@ def cholesky_append_solve_lanes(L, g_row, b, k, out=None):
     by appends, which keep it lower triangular with identity rows past the
     block); g_row: [T, B], the new symmetric row of the Gram (entries past
     k are ignored, ``g_row[k]`` is the new diagonal); b: [T, B]; k: int.
-    Returns ``(V_new, z)`` with z [T, B]. ``V_new`` is written to ``out``
-    when given; ``out=L`` updates the factor in place, and then the kernel
-    writes only row k. Otherwise it is a new tensor.
+    Returns ``(V_new, z)`` with z [T, B]. The kernel writes row k of the
+    factor in place: ``out=L`` updates L itself; another ``out`` receives
+    a copy of L first, and with no ``out`` ``V_new`` is a new copy.
     """
     T, _, B = L.shape
     k = int(k)
@@ -82,10 +82,15 @@ def cholesky_append_solve_lanes(L, g_row, b, k, out=None):
     if not supports_lanes_append(T, B, L.dtype):
         raise ValueError(f"the append kernel needs float32, T % 8 == 0 and "
                          f"T <= {_MAX_T}, got T={T}, {L.dtype}")
-    V = torch.empty_like(L) if out is None else out
+    if out is None:
+        V = L.clone()
+    else:
+        V = out
+        if out.data_ptr() != L.data_ptr():
+            out.copy_(L)
     z = torch.empty_like(b)
-    CHOL_APPEND_SOLVE(L.data_ptr(), V.data_ptr(), g_row.data_ptr(),
-                      b.data_ptr(), z.data_ptr(), k, T, B, _cuda.stream())
+    CHOL_APPEND_SOLVE(V.data_ptr(), g_row.data_ptr(), b.data_ptr(),
+                      z.data_ptr(), k, T, B, _cuda.stream())
     return V, z
 
 

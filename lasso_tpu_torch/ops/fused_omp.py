@@ -215,7 +215,7 @@ def omp_orth_plain(state, wt, k, tol=None):
     state.idx[:, k] = torch.where(act, kstar, 0).to(torch.int32)
     state.valid[:, k] = act.float()
     state.active.copy_(act.float())
-    state.sel[rows[act], kstar[act]] = 1
+    state.sel[rows, kstar] |= act.to(torch.uint8)
     actf = act.float()[:, None]
     w = wt[kstar]                                           # [N, D]
     w0n = torch.sum(w * w, dim=1)

@@ -248,9 +248,9 @@ def test_fused_omp_kernels_match_plain(kp):
 
 def test_chol_append_kernel_matches_plain():
     """K7 against its plain version on the card, appending the rows of
-    random PD systems one at a time from the identity, in place and into a
-    fresh buffer, with every third sample appending identity rows (a
-    frozen OMP sample): V and z rtol 2e-4 / atol 1e-5."""
+    random PD systems one at a time from the identity, in place, into a
+    new factor and into another buffer, with every third sample appending
+    identity rows (a frozen OMP sample): V and z rtol 2e-4 / atol 1e-5."""
     _need_card()
     rng = np.random.default_rng(3)
     T, B = 16, 200
@@ -268,12 +268,15 @@ def test_chol_append_kernel_matches_plain():
         b[:k + 1] = rhs[:k + 1]
         gc, bc = t(g).cuda(), t(b).cuda()
         fresh, z_f = T_B.cholesky_append_solve_lanes(V, gc, bc, k)
+        other = torch.full_like(V, float("nan"))
+        _, z_o = T_B.cholesky_append_solve_lanes(V, gc, bc, k, out=other)
         _, z = T_B.cholesky_append_solve_lanes(V, gc, bc, k, out=V)
         Vp, z_p = T_B.cholesky_append_solve_lanes_plain(Vp, gc, bc, k)
-        for a, c in ((V, Vp), (fresh, Vp), (z, z_p), (z_f, z_p)):
+        for a, c in ((V, Vp), (fresh, Vp), (other, Vp), (z, z_p),
+                     (z_f, z_p), (z_o, z_p)):
             np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
         assert not bool(z[k + 1:].any())
-    assert T_B.CHOL_APPEND_SOLVE.launches - before == 2 * T
+    assert T_B.CHOL_APPEND_SOLVE.launches - before == 3 * T
 
 
 def test_omp_on_card_matches_cpu():
