@@ -115,6 +115,32 @@ before the last line is printed.
    rss fallback is printed but not held there: at T=64 two greedy paths
    that part at a near-tie go on apart, and their rss differ by more than
    1e-3 (PERF.md).
+12. The Cholesky solve kernel (K8 ``chol_solve`` of ``csrc/chol.cu``)
+   against its plain version on the card, on A = Q Q^T + 2 I with Q
+   standard normal (tests/test_linalg.py:140-159), at B=16384 and D=64
+   (the 'chol-full' solve's shape), B=1024 and D=256 (the gate's limit),
+   D=12 and D=100 at B=130, and B=1 at D=64 and 256: x at rtol 1e-4 /
+   atol 1e-5. One sample that is not PD gives a non-finite x from the
+   kernel and finite ones elsewhere, and ``batch_cholesky_solve`` then
+   takes the LU solve once for the whole batch (atol 1e-4 against a
+   float64 solve). Then K8 alone at B=16384, D=64, timed beside its plain
+   version (CUDA-graph replays) and ``torch.linalg.cholesky_ex`` +
+   ``torch.cholesky_solve`` as the library yardstick (its card time by
+   torch.profiler: MAGMA's batched solve cannot be captured in a graph),
+   with its bound (one triangle of the symmetric A, b and x); and its time
+   at B=1024, D=256.
+13. OMP 'chol-full' at the width of phase 11 through
+   ``sparse_encode(algorithm='omp', n_nonzero_coefs=64,
+   solver='chol-full')``, the main run of this slice: 64 ``chol_solve``
+   launches and no LU fallback, solves/s and ms a step, codes finite with
+   at most 64 nonzeros a row, held to the fused solve by the headline rule
+   of phase 11; K8's share of the kernel time of a solve (torch.profiler);
+   'chol-full' with a tol that about half the rows reach (frozen rows'
+   rss at most tol, one K8 launch a step); an explicit 'chol' with
+   ``use_pallas=False`` at 1000x(256->512), T=13, which must warn and give
+   the codes of 'chol-full' on the library's factorization; and OMP
+   dictionary learning at the training width (T=16, 3 EM steps, the
+   sequential M-step), whose losses must not rise.
 
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -132,6 +158,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -140,7 +167,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from lasso_tpu_torch import headline_bench  # noqa: E402
-from lasso_tpu_torch.linalg import lipschitz_constant  # noqa: E402
+from lasso_tpu_torch.linalg import basic, lipschitz_constant  # noqa: E402
 from lasso_tpu_torch import linear  # noqa: E402
 from lasso_tpu_torch.linear import lasso_path, sparse_encode  # noqa: E402
 from lasso_tpu_torch.linear.solvers import coord_descent_mod  # noqa: E402
@@ -172,6 +199,7 @@ OMP_SOURCE = "lasso_tpu_torch/csrc/omp.cu"
 OMP_REPLACES = "lasso_tpu/ops/fused_omp.py:308"
 CHOL_SOURCE = "lasso_tpu_torch/csrc/chol.cu"
 CHOL_REPLACES = "lasso_tpu/ops/batched_cholesky.py:290"
+CHOL_SOLVE_REPLACES = "lasso_tpu/ops/batched_cholesky.py:366"
 OMP_T = 64                                      # benchmarks/omp_fused_bench.py
 # rows of 16384 that two OMP fits at the headline may part on: the most
 # measured is 9 (the bf16 kernels against their plain version), and the
@@ -1622,6 +1650,217 @@ def phase_omp_slice(x_np, W_np):
     return counts
 
 
+def spd_systems(B_, D_, seed):
+    """b [B_, D_] and A = Q Q^T + 2 I [B_, D_, D_] on the card, Q standard
+    normal (tests/test_linalg.py:140-159)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    Q = torch.randn(B_, D_, D_, generator=g, device=DEV)
+    A = Q @ Q.transpose(1, 2) + 2 * torch.eye(D_, device=DEV)
+    return torch.randn(B_, D_, generator=g, device=DEV), A
+
+
+def chol_solve_bound_ms(B_, D_):
+    """The two terms of K8's bound in ms: the bytes the solve needs (A is
+    symmetric, so one triangle of it, D (D + 1) / 2 floats a sample, and b
+    read, x written) over the memory rate, and its B (D^3 / 3 + 2 D^2)
+    operations over the FP32 peak."""
+    t_bytes = 4 * B_ * (D_ * (D_ + 1) / 2 + 2 * D_) / HBM_BYTES_PER_S * 1e3
+    t_ops = B_ * (D_ ** 3 / 3 + 2 * D_ ** 2) / PEAK_FLOPS["f32"] * 1e3
+    return t_bytes, t_ops
+
+
+def chol_solve_sector_ms(B_, D_):
+    """The byte term of K8 as it reads A: row k from the diagonal on, each
+    row's tail rounded out to whole 32-byte sectors, plus b and x."""
+    sectors = 0
+    for k in range(D_):
+        lo, hi = 4 * (k * D_ + k), 4 * (k * D_ + D_)
+        sectors += (hi - 1) // 32 - lo // 32 + 1
+    return B_ * (32 * sectors + 8 * D_) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_chol_solve():
+    """K8 (chol_solve) against its plain version on the card at every shape
+    listed, the non-PD sample and the whole-batch LU fallback, then K8 alone
+    at B=16384, D=64 (the 'chol-full' solve's shape): time, plain time,
+    library time, bound."""
+    errs = {}
+    for B_, D_ in ((N, OMP_T), (1024, 256), (130, 12), (130, 100),
+                   (1, OMP_T), (1, 256)):
+        b, A = spd_systems(B_, D_, seed=B_ + D_)
+        x = B.batch_cholesky_solve_lanes(b, A)
+        torch.cuda.synchronize()
+        want = B.batch_cholesky_solve_lanes_plain(b, A)
+        errs[(B_, D_)] = float((x - want).abs().max())
+        worst = rel_excess(x, want, 1e-4)
+        print(f"[12] chol_solve B={B_} D={D_}: max|err| {errs[(B_, D_)]:.3e}, "
+              f"max(|err| - 1e-4 |plain|) {worst:.3e} (atol 1e-5), finite "
+              f"{bool(torch.isfinite(x).all())}")
+        check(worst <= 1e-5 and bool(torch.isfinite(x).all()),
+              f"chol_solve B={B_} D={D_}")
+        del b, A, x, want
+    # one sample that is not PD: a non-finite x from the kernel, the others
+    # finite; batch_cholesky_solve then takes LU for the whole batch
+    b, A = spd_systems(N, OMP_T, seed=12)
+    A[5] = -torch.eye(OMP_T, device=DEV)
+    x = B.batch_cholesky_solve_lanes(b, A)
+    others = torch.ones(N, dtype=torch.bool, device=DEV)
+    others[5] = False
+    bad_ok = (not bool(torch.isfinite(x[5]).any())
+              and bool(torch.isfinite(x[others]).all()))
+    lu_before = _cuda.launch_counts().get("batch_cholesky_solve_lu", 0)
+    got = basic.batch_cholesky_solve(b, A)
+    lu_calls = (_cuda.launch_counts().get("batch_cholesky_solve_lu", 0)
+                - lu_before)
+    ref = torch.linalg.solve(A.double(), b.double()[:, :, None])[:, :, 0]
+    e_lu = float((got.double() - ref).abs().max())
+    print(f"[12] non-PD sample 5 of {N}: kernel x non-finite there and finite "
+          f"elsewhere {bad_ok}; batch_cholesky_solve took LU {lu_calls} time, "
+          f"max|err| against a float64 solve {e_lu:.3e} (atol 1e-4)")
+    check(bad_ok and lu_calls == 1 and e_lu <= 1e-4,
+          "chol_solve non-PD sample and the LU fallback")
+    del b, A, x, got, ref
+
+    # K8 alone at B = N, D = T
+    b, A = spd_systems(N, OMP_T, seed=13)
+    t_bytes, t_ops = chol_solve_bound_ms(N, OMP_T)
+
+    # torch.cholesky_solve runs MAGMA's spotrs_batched here, which cannot be
+    # captured in a CUDA graph, and events around eager calls time the host
+    # too: the library's card time is the sum of its operations' device times
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.cholesky_solve(b[:, :, None], L)
+
+    e_lib = float((library()[:, :, 0] - B.batch_cholesky_solve_lanes(b, A))
+                  .abs().max())
+    row = {"name": "chol_solve", "route": "cuda", "source": CHOL_SOURCE,
+           "replaces": CHOL_SOLVE_REPLACES, "launches": None,
+           "max_abs_err": errs[(N, OMP_T)],
+           "ms": cuda_ms(lambda: B.batch_cholesky_solve_lanes(b, A)),
+           "plain_ms": graph_ms(
+               lambda: B.batch_cholesky_solve_lanes_plain(b, A)),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": 1e3 * sum(kernel_seconds(library)
+                                   for _ in range(5)) / 5}
+    b2, A2 = spd_systems(1024, 256, seed=14)
+    ms_256 = cuda_ms(lambda: B.batch_cholesky_solve_lanes(b2, A2))
+    bound_256 = max(chol_solve_bound_ms(1024, 256))
+    lib_eager = cuda_ms(library)
+    print(f"[12] {json.dumps(row)} (B={N}, D={OMP_T}; ms: mean of 20 "
+          f"launches; plain_ms: CUDA-graph replays; library: "
+          f"torch.linalg.cholesky_ex + torch.cholesky_solve, timed only, "
+          f"{e_lib:.3e} from the kernel; library_ms: the card time of its "
+          f"operations by torch.profiler, mean of 5 calls, by name "
+          f"{json.dumps(kernel_ms_by_name(library))}, against "
+          f"{lib_eager:.4f} ms a call by events around 20 calls from Python; "
+          f"bound: one triangle of A, b and x, "
+          f"{t_bytes:.4f} ms, {chol_solve_sector_ms(N, OMP_T):.4f} ms with "
+          f"A's row tails rounded to 32-byte sectors; max_abs_err at the "
+          f"other shapes: "
+          + ", ".join(f"B={k[0]} D={k[1]} {v:.3e}" for k, v in errs.items())
+          + f"); at B=1024, D=256: {ms_256:.4f} ms, bound {bound_256:.4f} ms")
+    return row
+
+
+def phase_chol_full(x_np, W_np):
+    """OMP 'chol-full' at the OMP width through sparse_encode (the main run
+    of this slice, launches counted: K8 once a step, no LU fallback),
+    against the fused solve; its share of a step; a tol run; the explicit
+    'chol' with use_pallas=False at a small shape; OMP dictionary learning
+    at the training width."""
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    kw = dict(algorithm="omp", n_nonzero_coefs=OMP_T)
+    z_fused = sparse_encode(x, W, **kw)
+    rss_fused = omp_rss64(x, W, z_fused)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    z, n_iter = sparse_encode(x, W, solver="chol-full", return_iters=True,
+                              **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    nnz = (z != 0).sum(dim=1)
+    print(f"[13] omp chol-full: {1 / seconds:.3f} solves/s ({seconds:.4f} s, "
+          f"{seconds / OMP_T * 1e3:.3f} ms a step), n_iter {n_iter}, mean rss "
+          f"{float(omp_rss64(x, W, z).mean()):.6f}, nnz per row "
+          f"{int(nnz.min())}-{int(nnz.max())}, launches {json.dumps(counts)}")
+    check(int(nnz.max()) <= OMP_T and bool(torch.isfinite(z).all())
+          and tuple(z.shape) == (N, K) and n_iter == OMP_T,
+          "omp chol-full: codes")
+    check(counts.get("chol_solve", 0) == OMP_T
+          and counts.get("batch_cholesky_solve_lu", 0) == 0,
+          f"omp chol-full: {counts.get('chol_solve', 0)} chol_solve launches "
+          f"(want {OMP_T}), {counts.get('batch_cholesky_solve_lu', 0)} LU "
+          f"fallbacks (want 0)")
+    print("[13] fused against chol-full:")
+    check(omp_agree_at_scale(x, W, z, z_fused, 13),
+          "fused and chol-full agree at the headline")
+    by_name = kernel_ms_by_name(lambda: sparse_encode(
+        x, W, solver="chol-full", **kw))
+    k8 = sum(v for k, v in by_name.items() if "chol_solve" in k)
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[13] chol-full kernel time by name over one solve (ms): "
+          f"{json.dumps(dict(top))}; K8 {k8:.3f} ms = {k8 / OMP_T:.4f} ms a "
+          f"step, {100 * k8 / total:.1f}% of {total:.3f} ms of kernels")
+
+    # a tol that about half of the rows reach before T steps
+    tol = float(torch.quantile(rss_fused.float(), 0.5)) * 1.05
+    before = _cuda.launch_counts()
+    zt, it = sparse_encode(x, W, solver="chol-full", tol=tol,
+                           return_iters=True, **kw)
+    torch.cuda.synchronize()
+    k8_tol = _cuda.launch_counts()["chol_solve"] - before["chol_solve"]
+    frozen = (zt != 0).sum(dim=1) < OMP_T
+    over = float((omp_rss64(x, W, zt)[frozen] / tol).max())
+    print(f"[13] chol-full tol {tol:.6g}: {int(frozen.sum())} of {N} rows "
+          f"froze before {OMP_T} atoms, their rss at most {over:.6f} x tol, "
+          f"n_iter {it}, {k8_tol} chol_solve launches")
+    check(0 < int(frozen.sum()) < N and over <= 1 + 1e-3 and it == OMP_T
+          and k8_tol == it, "omp chol-full tol freeze")
+    del z, zt, z_fused
+
+    # an explicit 'chol' without the append route warns and takes the
+    # exact 'chol-full' (the library's factorization with use_pallas=False)
+    xs, Ws = omp_case(1000, 256, 512, 13, seed=130)
+    before = _cuda.launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        zc = sparse_encode(xs, Ws, algorithm="omp", n_nonzero_coefs=13,
+                           solver="chol", use_pallas=False)
+    k8_lib = _cuda.launch_counts()["chol_solve"] - before["chol_solve"]
+    zf = sparse_encode(xs, Ws, algorithm="omp", n_nonzero_coefs=13,
+                       solver="chol-full", use_pallas=False)
+    warned = any("chol-full" in str(w.message) for w in caught)
+    same = bool(torch.equal(zc, zf))
+    print(f"[13] solver='chol', use_pallas=False at 1000x256->512, T=13: "
+          f"warned {warned}, codes equal to 'chol-full' {same}, "
+          f"{k8_lib} chol_solve launches (the library route)")
+    check(warned and same and k8_lib == 0,
+          "explicit chol off the append route")
+
+    # OMP dictionary learning at the training width: 3 EM steps, T=16
+    X = torch.from_numpy(training_data()).to(DEV)
+    t0 = time.perf_counter()
+    Wd, losses = DL.dict_learning(X, TRAIN_K, alpha=0.0, constrained=True,
+                                  steps=3, algorithm="omp",
+                                  n_nonzero_coefs=16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ls = losses.cpu().numpy()
+    rising = float(np.max(np.diff(ls)))
+    print(f"[13] OMP dict_learning {TRAIN_N}x{TRAIN_D}->{TRAIN_K}, T=16, 3 "
+          f"steps: {seconds:.3f} s, losses {ls.tolist()}, largest rise "
+          f"{rising:.3e} (at most 1e-5 of the first loss)")
+    check(np.isfinite(ls).all() and rising <= 1e-5 * ls[0]
+          and bool(torch.isfinite(Wd).all()), "OMP dict_learning losses")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1661,6 +1900,9 @@ def main():
     counts = phase_omp_slice(*omp_problem())
     for name, row in omp_rows.items():
         rows.append({**row, "launches": counts.get(name, 0)})
+    chol_row = phase_chol_solve()
+    counts = phase_chol_full(*omp_problem())
+    rows.append({**chol_row, "launches": counts["chol_solve"]})
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,7 +1,8 @@
-// Append one row to a batch of inverse Cholesky factors and solve, as a
-// hand-written kernel for Hopper (sm_90a).
+// Batched Cholesky kernels, hand-written for Hopper (sm_90a): K7 appends one
+// row to a batch of inverse Cholesky factors and solves; K8 (further down)
+// factors a batch of small PD systems and solves them.
 //
-// Replaces the TPU kernel of the JAX package's ops/batched_cholesky.py:
+// K7 replaces the TPU kernel of the JAX package's ops/batched_cholesky.py:
 //   cholesky_append_solve_lanes (_make_append_kernel, pallas_call at
 //   batched_cholesky.py:290)
 // which the incremental-Gram 'chol' route of OMP calls once per step. Each
@@ -152,6 +153,167 @@ extern "C" int chol_append_solve(float* v, const float* g, const float* b,
   chol_append_solve_kernel<<<(B + SB - 1) / SB, SB * PW, smem,
                              (cudaStream_t)stream>>>(v, g, b, z, k, T, B);
   return (int)cudaGetLastError();
+}
+
+// K8 chol_solve: solve A_s x_s = b_s for a batch of symmetric PD systems,
+// A [B, D, D] and b, x [B, D] in PyTorch's own row-major layout, D <= 256.
+//
+// Replaces the TPU kernel of the JAX package's ops/batched_cholesky.py:
+//   batch_cholesky_solve_lanes (_make_kernel for D % 8 != 0,
+//   _make_kernel_blocked for D % 8 == 0, pallas_call at
+//   batched_cholesky.py:366)
+// which linalg/basic.py::batch_cholesky_solve calls, once a step for OMP's
+// refactorizing 'chol-full' route. The TPU kernel transposes A to
+// [D, D, B] and pads B to a multiple of 128 so that the batch fills the
+// vector lanes; here a group of TPS threads owns one sample, and nothing
+// is transposed or padded.
+//
+// The arithmetic is the TPU kernel's: the column recurrence
+//   for j: inv = rsqrt(a_jj); L[j:, j] = a[j:, j] * inv;
+//          a[i, k] -= L[i, j] L[k, j]   (k > j, i >= k)
+// then the forward substitution L y = b and the back substitution
+// L^T x = y, both column by column (y_j = r_j / L_jj, then r_i -= y_j L_ij
+// for i > j; x_j = y_j / L_jj, then y_k -= x_j L_jk for k < j). There is no
+// pivot floor: a pivot <= 0 gives rsqrt = NaN or inf and a non-finite x,
+// which is what sends the caller's whole batch to the LU solve.
+//
+// A is taken as symmetric; the kernel reads its upper triangle, row k
+// from the diagonal on, which is column k of the lower factor: the sample's
+// packed lower triangle, column-major (column k, rows k..D-1, starts at
+// cs(k) = k D - k (k - 1) / 2), is loaded with contiguous reads of A, once.
+// It stays in shared memory for the whole solve: D (D + 1) / 2 floats, 8.3
+// KB at D = 64 and 131.6 KB at D = 256 (one block's 227 KB after opting in).
+// The trailing update of column j is the contiguous tail of that packed
+// array, so the TPS threads of a sample walk it with unit stride (no bank
+// conflicts), each carrying its element's (row, column) to find the two
+// factor entries it multiplies. TPS grows with D (32 up to D = 64, so a
+// warp a sample and 8 samples a block; 256 above D = 160, one sample a
+// block); all samples of a launch have the same D, so every group runs the
+// same loop and __syncthreads serves the whole block.
+//
+// What bounds it at B = 16384, D = 64 (OMP's 'chol-full' at T = 64): A read
+// once is 268 MB, 0.08 ms at 3.35 TB/s; its B (D^3 / 3 + 2 D^2) operations
+// are 1.6 GFLOP, 0.024 ms at 67 TFLOP/s. So it is bound by its bytes; this
+// simple version spends most of its time in the trailing update's shared
+// memory loop (about 10 instructions an element, D^3 / 6 elements a
+// sample).
+
+namespace {
+
+constexpr int CS_THREADS = 256;   // threads per block for K8
+
+// advance the (row i, column k) position of a packed column-major lower
+// triangle of width d by n elements (column k holds rows k..d-1); stops at
+// k == d past the end
+__device__ __forceinline__ void tri_advance(int& i, int& k, int n, int d) {
+  i += n;
+  while (i >= d && k < d) {
+    i -= d - k - 1;   // the overflow past row d - 1 continues in column
+    ++k;              // k + 1, whose first row is k + 1
+  }
+}
+
+__device__ __forceinline__ int tri_col(int k, int d) {
+  return k * d - k * (k - 1) / 2;
+}
+
+template <int TPS>
+__global__ void __launch_bounds__(CS_THREADS)
+    chol_solve_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b, float* __restrict__ x,
+                      int B, int D) {
+  constexpr int S = CS_THREADS / TPS;   // samples per block
+  extern __shared__ float sh[];
+  const int tri = D * (D + 1) / 2;
+  const int g = threadIdx.x / TPS, t = threadIdx.x % TPS;
+  const size_t s = (size_t)blockIdx.x * S + g;
+  const bool live = s < (size_t)B;
+  float* P = sh + (size_t)g * (tri + 2 * D);   // packed lower triangle
+  float* r = P + tri;                          // b, then x
+  float* y = r + D;                            // y, then the back sums
+  const float* as = a + s * D * D;
+
+  // load: P[cs(k) + i - k] = A[k, i] for i >= k; a group past the batch
+  // takes the identity and a zero right-hand side, and stores nothing
+  {
+    int i = t, k = 0;
+    tri_advance(i, k, 0, D);
+    for (int p = t; p < tri; p += TPS) {
+      P[p] = live ? as[(size_t)k * D + i] : (i == k ? 1.f : 0.f);
+      tri_advance(i, k, TPS, D);
+    }
+    for (int i2 = t; i2 < D; i2 += TPS)
+      r[i2] = live ? b[s * D + i2] : 0.f;
+  }
+  __syncthreads();
+
+  // factor, column by column
+  for (int j = 0, cj = 0; j < D; cj += D - j, ++j) {
+    const float inv = __frsqrt_rn(P[cj]);
+    for (int i = j + 1 + t; i < D; i += TPS)
+      P[cj + i - j] = __fmul_rn(P[cj + i - j], inv);
+    __syncthreads();
+    // the diagonal is scaled here, where nothing reads it any more
+    if (t == 0) P[cj] = __fmul_rn(P[cj], inv);
+    // trailing update: the packed tail from column j + 1 on
+    int i = j + 1 + t, k = j + 1;
+    tri_advance(i, k, 0, D);
+    for (int p = cj + (D - j) + t; p < tri; p += TPS) {
+      P[p] = fmaf(-P[cj + i - j], P[cj + k - j], P[p]);
+      tri_advance(i, k, TPS, D);
+    }
+    __syncthreads();
+  }
+
+  // forward substitution L y = r
+  for (int j = 0, cj = 0; j < D; cj += D - j, ++j) {
+    const float yj = __fdiv_rn(r[j], P[cj]);
+    for (int i = j + 1 + t; i < D; i += TPS)
+      r[i] = fmaf(-yj, P[cj + i - j], r[i]);
+    if (t == 0) y[j] = yj;
+    __syncthreads();
+  }
+
+  // back substitution L^T x = y; x goes to r
+  for (int j = D - 1; j >= 0; --j) {
+    const float xj = __fdiv_rn(y[j], P[tri_col(j, D)]);
+    for (int k = t; k < j; k += TPS)
+      y[k] = fmaf(-xj, P[tri_col(k, D) + j - k], y[k]);
+    if (t == 0) r[j] = xj;
+    __syncthreads();
+  }
+
+  if (live)
+    for (int i = t; i < D; i += TPS) x[s * D + i] = r[i];
+}
+
+template <int TPS>
+int launch_chol_solve(const float* a, const float* b, float* x, int B, int D,
+                      cudaStream_t stream) {
+  constexpr int S = CS_THREADS / TPS;
+  const size_t smem = (size_t)S * (D * (D + 1) / 2 + 2 * D) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chol_solve_kernel<TPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  chol_solve_kernel<TPS><<<(B + S - 1) / S, CS_THREADS, smem, stream>>>(
+      a, b, x, B, D);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// a [B, D, D] (symmetric, its upper triangle read), b and x [B, D];
+// 1 <= D <= 256.
+extern "C" int chol_solve(const float* a, const float* b, float* x, int B,
+                          int D, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64) return launch_chol_solve<32>(a, b, x, B, D, st);
+  if (D <= 96) return launch_chol_solve<64>(a, b, x, B, D, st);
+  if (D <= 160) return launch_chol_solve<128>(a, b, x, B, D, st);
+  return launch_chol_solve<256>(a, b, x, B, D, st);
 }
 
 extern "C" const char* chol_error_string(int err) {

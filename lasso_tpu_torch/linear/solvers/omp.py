@@ -7,21 +7,23 @@ support kept as an [N, T] index matrix with a validity mask, and a
 per-sample ``tol`` stop on the squared residual (sklearn's
 ``orthogonal_mp(tol=...)``) that freezes a finished sample exactly.
 
-Two routes of the JAX package are ported:
+Three routes of the JAX package are ported:
 
 * ``solver='fused'``: the whole solve as the kernels of
   :mod:`lasso_tpu_torch.ops.fused_omp` (QR-OMP by modified Gram-Schmidt);
 * ``solver='chol'``: the incremental-Gram loop, which carries each sample's
   inverse Cholesky factor and appends one row a step with
-  :func:`lasso_tpu_torch.ops.batched_cholesky.cholesky_append_solve_lanes`.
-  Its per-step products, gathers and argmax are PyTorch ops, as the JAX
-  package leaves them to XLA; the ``while_loop`` is a Python loop that
-  reads ``any(active)`` to the host once a step.
+  :func:`lasso_tpu_torch.ops.batched_cholesky.cholesky_append_solve_lanes`;
+* ``solver='chol-full'``: the refactorizing loop, which carries each
+  sample's [T, T] support system and solves it afresh every step with
+  :func:`lasso_tpu_torch.linalg.batch_cholesky_solve` (the Cholesky solve
+  kernel where it applies, an LU solve of the whole batch when a support
+  system is not PD).
 
-``'chol-full'`` (refactorizing, with the batched Cholesky kernel of ROADMAP
-B item 8) and ``'cg'`` (warm-started CG, ROADMAP A item 9) are not ported
-yet and raise ``NotImplementedError``; no library factorization or solve
-stands in for them.
+Their per-step products, gathers and argmax are PyTorch ops, as the JAX
+package leaves them to XLA; the ``while_loop`` is a Python loop that reads
+``any(active)`` to the host once a step. ``'cg'`` (warm-started CG, ROADMAP
+A item 9) is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,15 +34,16 @@ import torch
 import torch.nn.functional as F
 
 from lasso_tpu_torch.config import get_precision
+from lasso_tpu_torch.linalg.basic import batch_cholesky_solve
 from lasso_tpu_torch.ops.batched_cholesky import (cholesky_append_solve_lanes,
                                                   supports_lanes_append)
 from lasso_tpu_torch.ops.common import matmul, resolve_pallas
 from lasso_tpu_torch.ops.fused_omp import fused_omp_solve, supports_fused_omp
 
-_NOT_PORTED = {
-    "chol-full": "the batched Cholesky kernel, ROADMAP B item 8",
-    "cg": "conjgrad_per_row, ROADMAP A item 9",
-}
+_NOT_PORTED = {"cg": "conjgrad_per_row, ROADMAP A item 9"}
+# N T^2 above which the JAX package's 'auto' takes 'cg' over 'chol-full'
+# where the append kernel is unavailable
+_CG_CROSSOVER = 1 << 27
 
 
 def _scatter_codes(idx, z_s, K):
@@ -61,11 +64,12 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
     ``n_nonzero_coefs``: the support budget T (default ``max(1, K // 10)``,
     at most ``min(D, K)``). ``tol``: optional per-sample stop on the
     squared residual norm. ``gram_jitter``: diagonal jitter of the support
-    Gram solve ('chol' only). ``kernel_precision`` ('f32' or 'bf16') sets
-    the selection product of 'fused'. ``ws_fast``: the gather-free
-    ``W_S``-carry loop body of 'chol' ('auto' while the [N, T, D] carry
-    stays under 6 GB; True/False force it; both bodies compute the same
-    recursion). ``cg_tol`` belongs to the unported 'cg'.
+    Gram solve ('chol' and 'chol-full'). ``kernel_precision`` ('f32' or
+    'bf16') sets the selection product of 'fused'. ``ws_fast``: the
+    gather-free ``W_S``-carry loop body of 'chol' ('auto' while the
+    [N, T, D] carry stays under 6 GB; True/False force it; both bodies
+    compute the same recursion; 'chol-full' always gathers).
+    ``cg_tol`` belongs to the unported 'cg'.
 
     ``solver``:
 
@@ -79,10 +83,16 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
       where :func:`supports_lanes_append` holds for T rounded up to a
       multiple of 8, unless ``use_pallas=False``. On a CUDA tensor it
       launches the append kernel, on a CPU tensor the plain version.
-    * 'auto' takes 'fused' where it is available, else 'chol'.
-    * 'chol-full' and 'cg' raise ``NotImplementedError``, and so do 'auto'
-      and 'chol' where the append route is unavailable (the JAX package
-      falls to those two there).
+      Unavailable, it warns and takes 'chol-full', the exact route.
+    * 'chol-full' refactorizes the support system each step with
+      :func:`batch_cholesky_solve` (``use_pallas`` passed on).
+    * 'auto' takes 'fused' where it is available, else 'chol' where the
+      append kernel launches (a CUDA tensor, or ``use_pallas=True``),
+      else 'chol-full' up to N T^2 = 2^27. Above that the JAX package
+      takes 'cg', which is not ported: a float32 CPU tensor keeps the
+      append's plain version, and anything else raises
+      ``NotImplementedError``.
+    * 'cg' raises ``NotImplementedError``.
 
     Atom selection divides the correlations by the column norms (a no-op
     for unit-norm dictionaries). Returns ``z`` [N, K], plus the executed
@@ -143,25 +153,38 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
             return z, int(torch.max(torch.sum(valid, dim=1)))
         return z
     inc = bool(use_pallas) and supports_lanes_append(Tp, N, x.dtype)
-    if solver in ("auto", "chol") and not inc:
-        raise NotImplementedError(
-            f"solver={solver!r} has no route here: the append route needs "
-            f"float32 and use_pallas not False, and the JAX package's "
-            f"fallbacks are not ported yet ('chol-full': "
-            f"{_NOT_PORTED['chol-full']}; 'cg': {_NOT_PORTED['cg']})")
+    if solver == "auto" and not resolve_pallas(use_pallas, inc, x.device):
+        if N * T * T <= _CG_CROSSOVER:
+            solver = "chol-full"
+        elif not inc:
+            raise NotImplementedError(
+                f"solver='auto' takes 'cg' here in the JAX package (no "
+                f"append kernel, N T^2 = {N * T * T} > 2^27), which is not "
+                f"ported yet ({_NOT_PORTED['cg']})")
+    elif solver == "chol" and not inc:
+        # an explicit exact solver never remaps to the inexact CG
+        warnings.warn(
+            "solver='chol' requested but the incremental append kernel is "
+            "unavailable here (needs float32 and use_pallas not False); "
+            "falling back to the exact refactorizing 'chol-full' path.",
+            stacklevel=2)
+        solver = "chol-full"
     if solver == "auto":
         solver = "chol"
-    if solver != "chol":
+    if solver not in ("chol", "chol-full"):
         raise ValueError(f"solver must be 'fused', 'chol', 'chol-full', "
                          f"'cg' or 'auto', got {solver!r}")
     return _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast,
-                     verbose, return_iters)
+                     verbose, return_iters, full=solver == "chol-full",
+                     use_pallas=use_pallas)
 
 
 def _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast, verbose,
-              return_iters):
-    """The incremental-Gram 'chol' route (the JAX package's while_loop
-    with ``inc`` on)."""
+              return_iters, full=False, use_pallas="auto"):
+    """The Cholesky routes (the JAX package's while_loop): the incremental
+    'chol', or with ``full`` the refactorizing 'chol-full', which always
+    takes the gather body and solves its [N, T, T] system with
+    :func:`batch_cholesky_solve` (``use_pallas``)."""
     N, D = x.shape
     K = weight.shape[1]
     dev, dtype = x.device, x.dtype
@@ -173,11 +196,14 @@ def _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast, verbose,
     tol_v = (None if tol is None
              else torch.as_tensor(tol, dtype=dtype, device=dev))
     ek_all = torch.eye(Tp, dtype=dtype, device=dev)
+    eyeT = torch.eye(T, dtype=dtype, device=dev)
 
     # the gather-free body carries the selected atoms W_S [N, T, D], so the
     # residual, the new Gram row and the new rhs entry are dense products;
     # past the 6 GB footprint the legacy gather body runs
-    if ws_fast == "auto":
+    if full:
+        ws_fast = False
+    elif ws_fast == "auto":
         ws_fast = N * T * D * x.element_size() <= (6 << 30)
     else:
         ws_fast = bool(ws_fast)
@@ -216,7 +242,10 @@ def _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast, verbose,
     idx = torch.zeros((N, T), dtype=torch.int32, device=dev)
     valid = torch.zeros((N, T), dtype=torch.bool, device=dev)
     z_s = torch.zeros((N, T), dtype=dtype, device=dev)
-    V = torch.eye(Tp, dtype=dtype, device=dev)[:, :, None].repeat(1, 1, N)
+    if full:
+        sys = eyeT.repeat(N, 1, 1)                            # [N, T, T]
+    else:
+        V = torch.eye(Tp, dtype=dtype, device=dev)[:, :, None].repeat(1, 1, N)
     sel = torch.zeros((N, K), dtype=torch.bool, device=dev)
     active = torch.ones((N,), dtype=torch.bool, device=dev)
     if ws_fast:
@@ -242,7 +271,17 @@ def _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast, verbose,
             g_row = torch.gather(g_full, 1, idx.long())
             b_sel = torch.where(valid, torch.gather(b, 1, idx.long()), 0.0)
             g_k = torch.where(valid, g_row, 0.0)
-            V, z_new = append_solve(V, g_k, b_sel, active, k)
+            if full:
+                # a frozen sample's row and column k stay identity, so its
+                # solution stays as it was
+                row_k = torch.where(active[:, None], g_k, eyeT[k])
+                sys[:, k, :] = row_k
+                sys[:, :, k] = row_k
+                G_sys = sys + gram_jitter * eyeT if gram_jitter else sys
+                z_new = batch_cholesky_solve(b_sel, G_sys,
+                                             use_pallas=use_pallas)
+            else:
+                V, z_new = append_solve(V, g_k, b_sel, active, k)
         z_s = torch.where(valid, z_new, 0.0)
         k += 1
     z = _scatter_codes(idx, z_s, K)

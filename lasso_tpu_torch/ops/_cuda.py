@@ -12,7 +12,9 @@ launches in the plain integer attribute ``launches``: one per launch, and
 nowhere else. ``WRAPPER_CALLS`` counts the calls of the Python functions
 that issue them (such as one ``fused_fista_multistep`` call, which
 launches two kernels per sub-step, or one ``fused_group_fista_multistep``
-call, which launches three) when they take the CUDA route.
+call, which launches three) when they take the CUDA route, and, as
+``batch_cholesky_solve_lu``, the batches that ``batch_cholesky_solve``
+sent to its LU fallback on the card.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
-"""Append one row to a batch of inverse Cholesky factors and solve: the
-hand-written CUDA kernel and its plain version.
+"""Batched Cholesky solves: the hand-written CUDA kernels and their plain
+versions.
 
-Counterpart of the append half of the JAX package's
-``ops/batched_cholesky.py`` (``cholesky_append_solve_lanes``). Greedy
-solvers that grow a PD system one row and column a step (OMP's support
-normal equations) carry the inverse factor ``V = L^{-1}`` of each sample
-and append the new row in O(T^2), with no substitution chain:
+Counterpart of the JAX package's ``ops/batched_cholesky.py``, whose two
+TPU kernels become K7 and K8 of ``csrc/chol.cu``.
+
+**The append (K7).** Greedy solvers that grow a PD system one row and
+column a step (OMP's support normal equations) carry the inverse factor
+``V = L^{-1}`` of each sample and append the new row in O(T^2), with no
+substitution chain:
 
     y    = V g[:k]                       (L y = g forward solve)
     u    = y^T V
@@ -17,15 +19,20 @@ The relative pivot floor turns a linearly dependent append (a duplicated
 atom) into a bounded perturbation of the dependent direction instead of a
 NaN, and leaves healthy pivots unchanged. Rows of V past the appended block
 stay identity rows, so zero-padded right-hand-side slots solve to exactly
-zero.
+zero. The layout is the JAX package's, batch innermost: V ``[T, T, B]``
+(``V[i]`` is row i as ``[T, B]``), g, b and z ``[T, B]``.
 
-The layout is the JAX package's, batch innermost: V ``[T, T, B]`` (``V[i]``
-is row i as ``[T, B]``), g, b and z ``[T, B]``. On a CUDA tensor
-:func:`cholesky_append_solve_lanes` launches K7 ``chol_append_solve`` of
-``csrc/chol.cu``; on a CPU tensor it runs
-:func:`cholesky_append_solve_lanes_plain`; a tensor on any other device
-raises. The batched full factorization (``batch_cholesky_solve_lanes``)
-comes with the interior point (ROADMAP B item 8).
+**The full solve (K8).** :func:`batch_cholesky_solve_lanes` solves a batch
+of PD systems ``A_s x_s = b_s`` (b ``[B, D]``, A ``[B, D, D]``, D <= 256)
+by the column recurrence with ``rsqrt`` of each pivot, then forward and
+back substitution, in PyTorch's own ``[B, D, D]`` layout (the TPU kernel's
+``[D, D, B]`` transpose and its padding of B exist only for the TPU's
+lanes). It has no pivot floor: a non-PD system gives a non-finite x, which
+sends the caller's batch to an LU solve
+(:func:`lasso_tpu_torch.linalg.batch_cholesky_solve`).
+
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
+its plain version; a tensor on any other device raises.
 """
 
 from __future__ import annotations
@@ -38,9 +45,10 @@ from lasso_tpu_torch.ops import _cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-# the C entry of csrc/chol.cu
+# the C entries of csrc/chol.cu
 CHOL_APPEND_SOLVE = _cuda.CudaKernel("chol", "chol_append_solve",
                                      [_P] * 4 + [_I] * 3 + [_P])
+CHOL_SOLVE = _cuda.CudaKernel("chol", "chol_solve", [_P] * 3 + [_I] * 2 + [_P])
 # K7 keeps y (then t) and the new row of a block's 32 samples in shared
 # memory: (2 T + 8) x 32 floats within the 227 KB of one H100 block
 _MAX_T = (227 * 1024 // (32 * 4) - 8) // 2
@@ -116,3 +124,60 @@ def cholesky_append_solve_lanes_plain(L, g_row, b, k):
     t3 = torch.sum(V * b.reshape(1, T, B), dim=1, keepdim=True)   # V b
     z = torch.sum(V * t3, dim=0)                                  # V'(V b)
     return V, z
+
+
+# K8 keeps a sample's packed lower triangle and two vectors in shared memory:
+# (D (D + 1) / 2 + 2 D) floats, 133.6 KB at D = 256
+_MAX_D = 256
+
+
+def supports_lanes_cholesky(b, A):
+    """Shapes the full solve kernel takes: float32, D <= 256 and any batch
+    B >= 1 (the JAX package's gate without its VMEM term). Larger D takes
+    the library route of the caller, in both packages."""
+    B, D = b.shape
+    return A.dtype == torch.float32 and D <= _MAX_D and B >= 1
+
+
+def batch_cholesky_solve_lanes(b, A):
+    """Solve the PD systems ``A_s x_s = b_s``: b ``[B, D]``, A ``[B, D, D]``
+    (symmetric; its upper triangle is read) -> x ``[B, D]``. A system that
+    is not PD gives a non-finite x (there is no pivot floor)."""
+    B, D = b.shape
+    if A.device.type == "cpu":
+        return batch_cholesky_solve_lanes_plain(b, A)
+    _cuda.check_cuda(b=b, A=A)
+    _cuda.check_shapes({"A": (A, (B, D, D))})
+    if not supports_lanes_cholesky(b, A):
+        raise ValueError(f"the Cholesky solve kernel needs float32, B >= 1 "
+                         f"and D <= {_MAX_D}, got B={B}, D={D}, {A.dtype}")
+    x = torch.empty_like(b)
+    CHOL_SOLVE(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, D,
+               _cuda.stream())
+    return x
+
+
+def batch_cholesky_solve_lanes_plain(b, A):
+    """The plain version of :func:`batch_cholesky_solve_lanes`, on any
+    device: the kernel's column recurrence (``rsqrt`` of each pivot, the
+    scaled column, the trailing update) and its column-oriented forward and
+    back substitutions, batched over B with elementwise torch ops. Like the
+    kernel it reads A's upper triangle and has no pivot floor. The kernel
+    fuses each update's multiply and subtract; here they round apart."""
+    B, D = b.shape
+    S = torch.triu(A) + torch.triu(A, 1).transpose(1, 2)  # symmetric copy
+    L = torch.zeros_like(A)
+    for j in range(D):
+        inv = torch.rsqrt(S[:, j, j])
+        c = S[:, j:, j] * inv[:, None]                    # L[j:, j]
+        L[:, j:, j] = c
+        S[:, j + 1:, j + 1:] -= c[:, 1:, None] * c[:, None, 1:]
+    r, y = b.clone(), torch.empty_like(b)
+    for j in range(D):                                    # L y = b
+        y[:, j] = r[:, j] / L[:, j, j]
+        r[:, j + 1:] -= y[:, j, None] * L[:, j + 1:, j]
+    x = torch.empty_like(b)
+    for j in range(D - 1, -1, -1):                        # L^T x = y
+        x[:, j] = y[:, j] / L[:, j, j]
+        y[:, :j] -= x[:, j, None] * L[:, j, :j]
+    return x

@@ -1,0 +1,103 @@
+"""lasso_tpu_torch on a CUDA card: the Cholesky solve kernel K8 against its
+plain version, its whole-batch LU fallback, and OMP 'chol-full' on the card
+against the same solve on the CPU.
+
+Every test here is marked ``gpu`` and skips where there is no card. This
+file imports neither JAX nor the JAX package; on a machine that has only
+PyTorch, run the card's tests without the JAX-based conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lasso_tpu_torch.linalg import batch_cholesky_solve
+from lasso_tpu_torch.linear.solvers import orthogonal_matching_pursuit
+from lasso_tpu_torch.ops import _cuda
+from lasso_tpu_torch.ops import batched_cholesky as T_B
+
+from _torch_port import assert_same_fit, n, omp_problem, t
+
+pytestmark = pytest.mark.gpu
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def pd_systems(seed, B, D):
+    """A = Q Q^T / D + 2 I and b on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Q = torch.randn(B, D, D, generator=g, device="cuda")
+    A = Q @ Q.transpose(1, 2) / D + 2 * torch.eye(D, device="cuda")
+    return torch.randn(B, D, generator=g, device="cuda"), A
+
+
+@pytest.mark.parametrize("B,D", [(300, 64), (130, 12), (130, 100), (9, 161),
+                                 (5, 256), (1, 1)])
+def test_chol_solve_kernel_matches_plain(B, D):
+    """Every thread-group width of K8 (32 threads a sample up to D = 64,
+    64, 128, then 256 above D = 160), batches that leave a block part
+    empty: x at rtol 1e-4 / atol 1e-5 from the plain version."""
+    _need_card()
+    b, A = pd_systems(B + D, B, D)
+    before = T_B.CHOL_SOLVE.launches
+    x = T_B.batch_cholesky_solve_lanes(b, A)
+    torch.cuda.synchronize()
+    assert T_B.CHOL_SOLVE.launches - before == 1
+    want = T_B.batch_cholesky_solve_lanes_plain(b, A)
+    np.testing.assert_allclose(n(x), n(want), rtol=1e-4, atol=1e-5)
+
+
+def test_non_pd_sample_and_the_lu_fallback():
+    """A non-PD sample gives a non-finite x from K8 and leaves the others
+    right; batch_cholesky_solve then returns the LU answer for the whole
+    batch and counts one fallback."""
+    _need_card()
+    b, A = pd_systems(3, 200, 64)
+    A[17] = -torch.eye(64, device="cuda")
+    x = T_B.batch_cholesky_solve_lanes(b, A)
+    assert not bool(torch.isfinite(x[17]).any())
+    good = torch.ones(200, dtype=torch.bool, device="cuda")
+    good[17] = False
+    assert bool(torch.isfinite(x[good]).all())
+    before = dict(_cuda.WRAPPER_CALLS)
+    got = batch_cholesky_solve(b, A)
+    lu = torch.linalg.solve(A.double(), b.double()[:, :, None])[:, :, 0]
+    np.testing.assert_allclose(n(got), n(lu), atol=1e-4)
+    assert (_cuda.WRAPPER_CALLS["batch_cholesky_solve_lu"]
+            - before.get("batch_cholesky_solve_lu", 0)) == 1
+
+
+def test_chol_solve_refuses_what_it_does_not_take():
+    _need_card()
+    b, A = pd_systems(4, 3, 8)
+    for args in ((b.double(), A.double()), (b[:, :4], A),
+                 (torch.zeros(2, 257, device="cuda"),
+                  torch.zeros(2, 257, 257, device="cuda")),
+                 (b, A.transpose(1, 2))):
+        with pytest.raises(ValueError):
+            T_B.batch_cholesky_solve_lanes(*args)
+
+
+def test_omp_chol_full_on_card_matches_cpu():
+    """'chol-full' on the card (one K8 launch a step, no LU fallback)
+    against the same solve on the CPU (plain versions), by
+    ``_assert_same_fit`` of tests/test_omp.py."""
+    _need_card()
+    x, W = omp_problem(13, 300, 64, 256)
+    before = _cuda.launch_counts()
+    zc, kc = orthogonal_matching_pursuit(t(x).cuda(), t(W).cuda(), 12,
+                                         solver="chol-full",
+                                         return_iters=True)
+    after = _cuda.launch_counts()
+    zp, kp = orthogonal_matching_pursuit(t(x), t(W), 12, solver="chol-full",
+                                         use_pallas=True, return_iters=True)
+    assert kc == kp == 12
+    assert after["chol_solve"] - before["chol_solve"] == 12
+    assert (after.get("batch_cholesky_solve_lu", 0)
+            == before.get("batch_cholesky_solve_lu", 0))
+    assert_same_fit(x, W, n(zp), n(zc))

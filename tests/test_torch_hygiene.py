@@ -62,17 +62,19 @@ def test_failed_library_load_raises(monkeypatch):
     group = importlib.import_module("lasso_tpu_torch.ops.fused_group")
     omp = importlib.import_module("lasso_tpu_torch.ops.fused_omp")
     chol = importlib.import_module("lasso_tpu_torch.ops.batched_cholesky")
+    basic = importlib.import_module("lasso_tpu_torch.linalg.basic")
     kernels = [*fused.FISTA_RESID.values(), *fused.FISTA_GRAD_PROX.values(),
                *cd.CD_STEPS.values(), cd.CD_MOD_SWEEP,
                *group.GROUP_PROX.values(), *omp.OMP_SELECT.values(),
-               omp.OMP_ORTH, omp.OMP_BACKSUB, chol.CHOL_APPEND_SOLVE]
+               omp.OMP_ORTH, omp.OMP_BACKSUB, chol.CHOL_APPEND_SOLVE,
+               chol.CHOL_SOLVE]
     for k in kernels:
         monkeypatch.setattr(k, "_fn", None)
         before = k.launches
         with pytest.raises(RuntimeError, match="cannot build"):
             k(*([0] * len(k.argtypes)))
         assert k.launches == before
-    for mod in (fused, cd, group, omp, chol, _cuda):
+    for mod in (fused, cd, group, omp, chol, basic, _cuda):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))
 

@@ -91,7 +91,7 @@ def test_tol_freezing_matches_jax(solver):
 def test_pad_route_and_auto():
     """D, K not multiples of 128: 'fused' pads onto the aligned grid with
     no warning and matches JAX's padded solve; 'auto' on the CPU takes
-    'chol' and matches JAX's CPU default ('chol-full')."""
+    'chol-full' and matches JAX's CPU default (also 'chol-full')."""
     x, W = omp_problem(2, 8, 64, 96)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -169,15 +169,21 @@ def test_dispatch_sparse_encode_chunked_and_cli(tmp_path):
 
 
 def test_unported_and_invalid_requests_raise():
+    """'cg' is not ported; nor is 'auto' where the JAX package takes 'cg':
+    without the append route (use_pallas=False, float64) above
+    N T^2 = 2^27."""
     x, W = (t(a) for a in omp_problem(0, 10, 32, 64))
-    for solver in ("chol-full", "cg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tomp(x, W, 4, solver=solver)
-    for solver in ("auto", "chol"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tomp(x, W, 4, solver=solver, use_pallas=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tomp(x.double(), W.double(), 4, solver=solver)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tomp(x, W, 4, solver="cg")
+    xb = torch.zeros(8193, 128)
+    Wb = torch.eye(128)
+    assert 8193 * 128 * 128 > 2 ** 27
+    for kw in ({"use_pallas": False}, {"use_pallas": True}):
+        for xs, Ws in ((xb, Wb), (xb.double(), Wb.double())):
+            if kw["use_pallas"] and xs.dtype == torch.float32:
+                continue                       # the append route: no raise
+            with pytest.raises(NotImplementedError, match="'cg'.*ROADMAP"):
+                tomp(xs, Ws, 128, **kw)
     with pytest.raises(ValueError, match="solver"):
         tomp(x, W, 4, solver="lars")
     for T in (0, 33):
@@ -203,7 +209,8 @@ def test_default_budget_and_verbose(capsys):
 
 def test_no_library_factorization_on_the_omp_path(monkeypatch):
     """No PyTorch factorization or solve stands in for the kernels: with
-    each of them patched to raise, 'fused' and 'chol' still solve."""
+    each of them patched to raise, 'fused', 'chol' and 'chol-full' (the
+    Cholesky solve kernel's plain version) still solve."""
     def refuse(*a, **k):
         raise AssertionError("a library factorization or solve ran")
 
@@ -216,7 +223,7 @@ def test_no_library_factorization_on_the_omp_path(monkeypatch):
         for name in names:
             monkeypatch.setattr(mod, name, refuse)
     x, W = (t(a) for a in omp_problem(8, 12, 128, 256))
-    for solver in ("fused", "chol"):
+    for solver in ("fused", "chol", "chol-full"):
         z = sparse_encode(x, W, algorithm="omp", n_nonzero_coefs=6,
                           solver=solver, use_pallas=True)
         assert bool(torch.isfinite(z).all())
