@@ -141,6 +141,31 @@ before the last line is printed.
    the codes of 'chol-full' on the library's factorization; and OMP
    dictionary learning at the training width (T=16, 3 EM steps, the
    sequential M-step), whose losses must not rise.
+14. The conv-FISTA kernels (K9a ``conv_decode_resid`` and K9b
+   ``conv_adjoint_prox`` of ``csrc/conv.cu``) against their plain versions
+   on the card: three sub-steps of ``fused_conv_fista_multistep`` in f32
+   and bf16 at a ragged shape (Cx=2, 4x2 atoms, pad 1, nonneg), kw=9 and
+   kw=11, a per-channel threshold, restart, and the headline (256 images
+   1x32x32, 64 atoms 7x7) and rich (64 images 16x32x32, 256 atoms 5x5)
+   shapes. Tolerances: f32 codes atol 3e-5 * max(1, |z|max) (JAX's),
+   delta 1e-5 relative; bf16 codes 1e-3 * scale, delta 1e-4; the restart
+   t equal. Then each kernel alone at the headline and rich shapes, timed
+   behind ``hold_the_card``'s queued work, beside its bound, its plain
+   version and cuDNN (``conv_transpose2d`` for K9a, ``conv2d`` for K9b,
+   TF32 off; in bf16 on bf16 tensors), both as CUDA-graph replays.
+15. Conv sparse coding through ``ista_conv2d`` at
+   ``benchmarks/conv_fused_bench.py``'s widths (alpha 0.1, lr = 1 / the
+   Araujo bound, 200 iterations, tol 0): the headline in 'f32', 'bf16',
+   'mixed' and f32 with restart (the main run of this slice, counts read
+   around it: 200 K9a and 200 K9b launches a solve), iterations/s as the
+   minimum over three inputs; the fused f32 f64 objective within 1e-5
+   relative of the unfused route (cuDNN, TF32 off); gap_vs_f32_pct of
+   'mixed' and 'bf16' against a 1600-iteration f32 anchor; tol runs
+   (1e-5, and 1e-4 where both routes stop early) whose fused n_iter lies
+   on a block boundary at or above the unfused one; the rich width in f32
+   and 'mixed' with the same parity check; and
+   ``chunked_encode(algorithm='ista_conv2d')`` on 600 images in chunks of
+   256 against direct calls, row for row.
 
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -171,9 +196,12 @@ from lasso_tpu_torch.linalg import basic, lipschitz_constant  # noqa: E402
 from lasso_tpu_torch import linear  # noqa: E402
 from lasso_tpu_torch.linear import lasso_path, sparse_encode  # noqa: E402
 from lasso_tpu_torch.linear.solvers import coord_descent_mod  # noqa: E402
+from lasso_tpu_torch.conv2d import (  # noqa: E402
+    ista_conv2d, lip_bound_conv2d, lip_constant)
 from lasso_tpu_torch.ops import _cuda  # noqa: E402
 from lasso_tpu_torch.ops import batched_cholesky as B  # noqa: E402
 from lasso_tpu_torch.ops import fused_cd as C  # noqa: E402
+from lasso_tpu_torch.ops import fused_conv as FC  # noqa: E402
 from lasso_tpu_torch.ops import fused_group as G  # noqa: E402
 from lasso_tpu_torch.ops import fused_ista as F  # noqa: E402
 from lasso_tpu_torch.ops import fused_omp as O  # noqa: E402
@@ -211,6 +239,18 @@ OMP_PARTING = 32
 # score by up to 2.0e-4 (PERF.md, PR 5), here with five times that
 CERT_EPS = {"f32": 1e-4, "bf16": 1e-3}
 PATH_N, SCREEN_ROWS, SCREEN_CHUNK = 4096, 8192, 2048
+CONV_SOURCE = "lasso_tpu_torch/csrc/conv.cu"
+CONV_REPLACES = "lasso_tpu/ops/fused_conv.py:531"
+# benchmarks/conv_fused_bench.py's configurations (N, Cz, Cx, k) over 32x32
+# images, k x k atoms, stride 1, padding 0, alpha 0.1
+CONV_CONFIGS = {"headline": (256, 64, 1, 7), "rich": (64, 256, 16, 5)}
+CONV_ALPHA, CONV_ITERS, CONV_SERVE, CONV_CHUNK = 0.1, 200, 600, 256
+# K9a/K9b against their plain versions: f32 codes at JAX's 3e-5 * max(1,
+# |z|max) and delta at 1e-5 relative; bf16 codes at 1e-3 * scale and delta
+# at 1e-4 (a residual element that rounds to the other bf16 neighbour in
+# the kernel than in cuDNN's sum moves the codes by lr |W| 2^-8 |r|: up to
+# 4.2e-4 measured)
+CONV_TOL = {"f32": (3e-5, 1e-5), "bf16": (1e-3, 1e-4)}
 DEV = torch.device("cuda")
 DL = importlib.import_module("lasso_tpu_torch.linear.dict_learning")
 SCR = importlib.import_module("lasso_tpu_torch.linear.screening")
@@ -1861,6 +1901,332 @@ def phase_chol_full(x_np, W_np):
     return counts
 
 
+def conv_geometry(cfg):
+    """(N, Cz, Cx, Hz, k) of a conv configuration over 32x32 images."""
+    n, cz, cx, k = CONV_CONFIGS[cfg]
+    return n, cz, cx, 33 - k, k
+
+
+def conv_operands(n, cz, cx, hz, wz, kh, kw, pad, seed):
+    """x, W, z, z_prev on the card for one conv step (W / kh as the
+    benchmark draws it, codes of size 0.1)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(n, cx, hz + kh - 1 - 2 * pad, wz + kw - 1 - 2 * pad,
+                    generator=g, device=DEV)
+    W = torch.randn(cz, cx, kh, kw, generator=g, device=DEV) / kh
+    z = 0.1 * torch.randn(n, cz, hz, wz, generator=g, device=DEV)
+    zp = z + 0.05 * torch.randn(n, cz, hz, wz, generator=g, device=DEV)
+    return x, W, z, zp
+
+
+def conv_step_size(W, imsize, pad):
+    """0.9 / L, L the top eigenvalue of the conv normal operator by power
+    iteration: a step that the solvers would take (a larger one lets the
+    iterates grow, and with them the kernels' rounding differences)."""
+    return 0.9 / float(lip_constant(W, tuple(imsize), padding=pad,
+                                    maxiter=100))
+
+
+def conv_bound_ms(n, cz, cx, hz, wz, kh, kw, pad, kp):
+    """The bounds of K9a and K9b in ms: (bytes term, operations term)
+    each. Operations: 2 per multiply-add of the taps that land inside the
+    image (the same pairs for the conv and its adjoint); bytes: K9a reads
+    z, z_prev and x and writes r, K9b reads r, z and z_prev and writes
+    z+."""
+    H, W_ = hz + kh - 1 - 2 * pad, wz + kw - 1 - 2 * pad
+    rows = sum(1 for i in range(H) for a in range(hz)
+               if 0 <= i + pad - a < kh)
+    cols = sum(1 for j in range(W_) for b in range(wz)
+               if 0 <= j + pad - b < kw)
+    t_ops = 2 * n * cz * cx * rows * cols / PEAK_FLOPS[kp] * 1e3
+    zb, xb = 4 * n * cz * hz * wz, 4 * n * cx * H * W_
+    return ((2 * zb + 2 * xb) / HBM_BYTES_PER_S * 1e3, t_ops), \
+        ((xb + 3 * zb) / HBM_BYTES_PER_S * 1e3, t_ops)
+
+
+def phase_conv_kernels():
+    """K9a and K9b (csrc/conv.cu) against their plain versions on the card:
+    three sub-steps of fused_conv_fista_multistep at every listed shape in
+    f32 and bf16; then each kernel alone at the headline and rich shapes,
+    timed beside its plain version, cuDNN and its bound."""
+    cases = [  # (label, n, cz, cx, hz, wz, kh, kw, pad, options)
+        ("ragged 4x2 pad 1 nonneg", 3, 8, 2, 7, 9, 4, 2, 1,
+         {"nonneg": True}),
+        ("kw 9 pad 1", 3, 8, 1, 5, 5, 3, 9, 1, {}),
+        ("kw 11", 3, 8, 1, 6, 8, 11, 11, 0, {}),
+        ("per-channel threshold", 3, 8, 1, 7, 7, 3, 3, 0, {"percol": True}),
+        ("restart", 4, 8, 1, 9, 9, 3, 3, 0, {"restart": True}),
+        ("restart, per-channel, 40x37 codes pad 2", 3, 13, 5, 40, 37, 5, 5,
+         2, {"restart": True, "percol": True}),
+        ("headline", 256, 64, 1, 26, 26, 7, 7, 0, {}),
+        ("rich", 64, 256, 16, 28, 28, 5, 5, 0, {}),
+    ]
+    moms = torch.tensor([0.3, 0.15, 0.0])
+    errs = {}
+    for label, n, cz, cx, hz, wz, kh, kw, pad, opt in cases:
+        x, W, z, zp = conv_operands(n, cz, cx, hz, wz, kh, kw, pad, seed=n)
+        lr = conv_step_size(W, x.shape[2:], pad)
+        g = torch.Generator(device=DEV).manual_seed(cz)
+        ths = (lr * (0.05 + 0.25 * torch.rand(cz, 1, generator=g,
+                                              device=DEV))
+               if opt.get("percol") else CONV_ALPHA * lr)
+        for kp in ("f32", "bf16"):
+            t0 = (3 * torch.rand(n, generator=g, device=DEV)
+                  if opt.get("restart") else None)
+            args = (x, z, zp, W, lr, ths, moms, 3)
+            kw_ = dict(padding=pad, kernel_precision=kp,
+                       nonneg=opt.get("nonneg", False), t_vec=t0)
+            got = FC.fused_conv_fista_multistep(*args, **kw_)
+            torch.cuda.synchronize()
+            want = FC.fused_conv_fista_multistep_plain(*args, **kw_)
+            scale = max(1.0, float(want[0].abs().max()))
+            e_z = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
+            e_d = abs(float(got[-1]) - float(want[-1])) / max(
+                1e-30, abs(float(want[-1])))
+            t_same = t0 is None or bool(torch.equal(got[2], want[2]))
+            errs[(label, kp)] = e_z
+            print(f"[14] {label} {n}x{cx}->{cz} {kh}x{kw} pad {pad} {kp}: "
+                  f"max|z err| {e_z:.3e} (atol {CONV_TOL[kp][0]} x "
+                  f"{scale:.3g}), delta rel err {e_d:.3e} (tol "
+                  f"{CONV_TOL[kp][1]}), restart t equal {t_same}")
+            check(e_z <= CONV_TOL[kp][0] * scale and e_d <= CONV_TOL[kp][1]
+                  and t_same, f"K9a/K9b {label} {kp} against plain")
+        del x, W, z, zp
+
+    rows = {}
+    NF = torch.nn.functional
+    for cfg in ("headline", "rich"):
+        n, cz, cx, hz, k = conv_geometry(cfg)
+        x, W, z, zp = conv_operands(n, cz, cx, hz, hz, k, k, 0, seed=14)
+        lr = conv_step_size(W, x.shape[2:], 0)
+        scal = torch.tensor([lr, CONV_ALPHA * lr, 0.3, 1.0], device=DEV)
+        r_out, z_out = torch.empty_like(x), torch.empty_like(z)
+        scratch = FC.adjoint_scratch(n, cz, hz, hz, DEV)
+        bounds = conv_bound_ms(n, cz, cx, hz, hz, k, k, 0, "f32")
+        for kp in ("f32", "bf16"):
+            r = FC.conv_decode_resid(x, z, zp, W, scal, kernel_precision=kp)
+            torch.cuda.synchronize()
+            e_a = float((r - FC.conv_decode_resid_plain(
+                x, z, zp, W, scal, kernel_precision=kp)).abs().max())
+            zn, _ = FC.conv_adjoint_prox(r, z, zp, W, scal,
+                                         kernel_precision=kp)
+            torch.cuda.synchronize()
+            e_b = float((zn - FC.conv_adjoint_prox_plain(
+                r, z, zp, W, scal, kernel_precision=kp)[0]).abs().max())
+            check(e_a <= 1e-4 * max(1.0, float(r.abs().max()))
+                  and e_b <= CONV_TOL[kp][0],
+                  f"K9a/K9b alone at the {cfg} shape, {kp}")
+            lib = torch.bfloat16 if kp == "bf16" else torch.float32
+            zl, rl, Wl = z.to(lib), r.to(lib), W.to(lib)
+            bnd = conv_bound_ms(n, cz, cx, hz, hz, k, k, 0, kp)
+            for name, err, (t_bytes, t_ops), kern, plain, library in (
+                    (f"conv_decode_resid_{kp}", e_a, bnd[0],
+                     lambda: FC.conv_decode_resid(
+                         x, z, zp, W, scal, kernel_precision=kp, out=r_out),
+                     lambda: FC.conv_decode_resid_plain(
+                         x, z, zp, W, scal, kernel_precision=kp),
+                     lambda: NF.conv_transpose2d(zl, Wl)),
+                    (f"conv_adjoint_prox_{kp}", e_b, bnd[1],
+                     lambda: FC.conv_adjoint_prox(
+                         r, z, zp, W, scal, kernel_precision=kp, out=z_out,
+                         scratch=scratch),
+                     lambda: FC.conv_adjoint_prox_plain(
+                         r, z, zp, W, scal, kernel_precision=kp),
+                     lambda: NF.conv2d(rl, Wl))):
+                row = {"name": name, "route": "cuda", "source": CONV_SOURCE,
+                       "replaces": CONV_REPLACES, "launches": None,
+                       "max_abs_err": err, "ms": cuda_ms(kern),
+                       "plain_ms": graph_ms(plain, reps=10),
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations"),
+                       "library_ms": graph_ms(library, reps=10)}
+                if cfg == "headline":
+                    rows[name] = row
+                print(f"[14] {cfg} {n}x{cx}->{cz} {k}x{k}: {json.dumps(row)} "
+                      f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
+        step_lib = graph_ms(lambda: NF.conv2d(NF.conv_transpose2d(z, W) - x,
+                                              W), reps=10)
+        print(f"[14] {cfg}: one step by cuDNN (conv_transpose2d, the "
+              f"residual, conv2d; TF32 off, CUDA-graph replays) "
+              f"{step_lib:.4f} ms; the step's bound in f32 "
+              f"{max(bounds[0][0] + bounds[1][0], 2 * bounds[0][1]):.4f} "
+              f"ms")
+        del x, W, z, zp, r_out, z_out, scratch
+    return rows
+
+
+def conv_problem(cfg, reps):
+    """``reps`` image batches and the atoms of a configuration, drawn as
+    benchmarks/conv_fused_bench.py draws them (default_rng(0); W / k)."""
+    n, cz, cx, _, k = conv_geometry(cfg)
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal((n, cx, 32, 32)).astype(np.float32)
+          for _ in range(reps)]
+    W = (rng.standard_normal((cz, cx, k, k)) / k).astype(np.float32)
+    return xs, W
+
+
+def conv_objective64(x, W, z):
+    """The conv lasso objective in float64 on the card."""
+    xh = torch.nn.functional.conv_transpose2d(z.double(), W.double())
+    return float(0.5 * torch.sum((xh - x.double()) ** 2)
+                 + CONV_ALPHA * torch.sum(z.double().abs()))
+
+
+def conv_launches(before):
+    """K9a and K9b launches (both precisions) since ``before``."""
+    now = _cuda.launch_counts()
+    return [sum(now.get(f"{k}_{kp}", 0) - before.get(f"{k}_{kp}", 0)
+                for kp in ("f32", "bf16"))
+            for k in ("conv_decode_resid", "conv_adjoint_prox")]
+
+
+def timed_conv(x, z0, W, lr, **kw):
+    """One ista_conv2d solve between two synchronizes, with a readback:
+    (codes, n_iter, seconds, [K9a, K9b] launches)."""
+    torch.cuda.synchronize()
+    before = _cuda.launch_counts()
+    t0 = time.perf_counter()
+    z, k = ista_conv2d(x, z0, W, CONV_ALPHA, lr=lr, return_iters=True, **kw)
+    float(z[0, 0, 0, 0])
+    seconds = time.perf_counter() - t0
+    return z, k, seconds, conv_launches(before)
+
+
+def phase_conv_slice():
+    """Conv sparse coding through ista_conv2d at the reference's width (the
+    main run of this slice, counts read around the four headline solves),
+    the rich width, a tol run and chunked serving."""
+    xs_np, W_np = conv_problem("headline", 4)
+    xs = [torch.from_numpy(a).to(DEV) for a in xs_np]
+    W = torch.from_numpy(W_np).to(DEV)
+    n, cz, _, hz, _ = conv_geometry("headline")
+    z0 = torch.zeros(n, cz, hz, hz, device=DEV)
+    lr = float(1.0 / lip_bound_conv2d(W, 0))
+    base = dict(maxiter=CONV_ITERS, tol=0.0)
+    variants = {"f32": {}, "bf16": {"kernel_precision": "bf16"},
+                "mixed": {"kernel_precision": "mixed"},
+                "f32 restart": {"restart": True}}
+    for kw in variants.values():   # warm-up on the first input
+        timed_conv(xs[0], z0, W, lr, **base, **kw)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    f64, codes = {}, {}
+    for label, kw in variants.items():
+        times = []
+        for x in xs[1:]:
+            z, k, seconds, (na, nb) = timed_conv(x, z0, W, lr, **base, **kw)
+            check(k == CONV_ITERS and na == nb == CONV_ITERS,
+                  f"conv {label}: n_iter {k}, {na} K9a and {nb} K9b "
+                  f"launches (want {CONV_ITERS} each)")
+            times.append(seconds)
+        codes[label] = z
+        f64[label] = conv_objective64(xs[-1], W, z)
+        check(bool(torch.isfinite(z).all()) and tuple(z.shape) == tuple(
+            z0.shape), f"conv {label}: codes finite, of the codes' shape")
+        print(f"[15] conv headline {label}: {CONV_ITERS / min(times):.2f} "
+              f"iterations/s (min of {len(times)} inputs; seconds "
+              f"{[round(s, 4) for s in times]}), f64 objective "
+              f"{f64[label]:.10g}, sparsity "
+              f"{float((z == 0).float().mean()):.4f}")
+    counts = _cuda.launch_counts()
+    print("[15] conv headline launch counts:", json.dumps(counts))
+
+    x = xs[-1]
+    z_u, k_u, s_u, launched = timed_conv(x, z0, W, lr, use_pallas=False,
+                                         **base)
+    f_u = conv_objective64(x, W, z_u)
+    rel = abs(f64["f32"] - f_u) / f_u
+    print(f"[15] unfused f32 (cuDNN, TF32 off): {CONV_ITERS / s_u:.2f} "
+          f"iterations/s, f64 objective {f_u:.10g}; fused f32 relative "
+          f"{rel:.3e} (tol 1e-5), max|z - z_unfused| "
+          f"{float((codes['f32'] - z_u).abs().max()):.3e}")
+    check(rel <= 1e-5 and launched == [0, 0],
+          "conv headline: fused f32 against the unfused route")
+    z_a, _, _, _ = timed_conv(x, z0, W, lr, maxiter=8 * CONV_ITERS, tol=0.0)
+    f_a = conv_objective64(x, W, z_a)
+    for label in ("mixed", "bf16"):
+        gap = 100.0 * (f64[label] - f64["f32"]) / max(f64["f32"] - f_a,
+                                                      1e-30)
+        print(f"[15] conv headline gap_vs_f32_pct {label}: {gap:.4f} "
+              f"({8 * CONV_ITERS}-iteration f32 anchor {f_a:.10g})")
+        check(np.isfinite(gap), f"conv {label} gap finite")
+    check(f_a <= f64["f32"], "conv anchor below the f32 solve")
+
+    # tol runs: the fused route stops on a block boundary (S = 10, the
+    # largest divisor of 200 that is at most 16), never earlier than the
+    # unfused route. At 1e-5 the objectives agree to 1e-5; at 1e-4, where
+    # both stop early, a step still moves the objective by more than that,
+    # so only the counts are held there.
+    S = 10
+    for tol in (1e-5, 1e-4):
+        z_f, k_f, _, _ = timed_conv(x, z0, W, lr, maxiter=CONV_ITERS,
+                                    tol=tol)
+        z_t, k_t, _, _ = timed_conv(x, z0, W, lr, maxiter=CONV_ITERS,
+                                    tol=tol, use_pallas=False)
+        f_f, f_t = conv_objective64(x, W, z_f), conv_objective64(x, W, z_t)
+        print(f"[15] conv tol {tol:g}: fused n_iter {k_f}, unfused n_iter "
+              f"{k_t}, f64 objectives {f_f:.10g} / {f_t:.10g} (relative "
+              f"{abs(f_f - f_t) / f_t:.3e})")
+        check((k_f % S == 0 or k_f == CONV_ITERS) and k_f >= k_t
+              and (tol > 1e-5 or abs(f_f - f_t) <= 1e-5 * f_t),
+              f"conv tol {tol:g} run")
+
+    # the rich width
+    xr_np, Wr_np = conv_problem("rich", 3)
+    xr = [torch.from_numpy(a).to(DEV) for a in xr_np]
+    Wr = torch.from_numpy(Wr_np).to(DEV)
+    n, cz, _, hz, _ = conv_geometry("rich")
+    zr0 = torch.zeros(n, cz, hz, hz, device=DEV)
+    lr_r = float(1.0 / lip_bound_conv2d(Wr, 0))
+    f_r = {}
+    for label, kw in (("f32", {}), ("mixed", {"kernel_precision": "mixed"}),
+                      ("unfused f32", {"use_pallas": False})):
+        times = []
+        for xi in xr:
+            z, k, seconds, (na, nb) = timed_conv(xi, zr0, Wr, lr_r, **base,
+                                                 **kw)
+            want = 0 if label == "unfused f32" else CONV_ITERS
+            check(k == CONV_ITERS and na == nb == want,
+                  f"conv rich {label}: n_iter {k}, launches {na}, {nb}")
+            times.append(seconds)
+        f_r[label] = conv_objective64(xr[-1], Wr, z)
+        print(f"[15] conv rich {label}: {CONV_ITERS / min(times[1:]):.2f} "
+              f"iterations/s (min of {len(times) - 1} inputs after one), f64 "
+              f"objective {f_r[label]:.10g}")
+    rel = abs(f_r["f32"] - f_r["unfused f32"]) / f_r["unfused f32"]
+    rel_mixed = (f_r["mixed"] - f_r["f32"]) / f_r["f32"]
+    print(f"[15] conv rich: fused f32 relative to unfused {rel:.3e} (tol "
+          f"1e-5); mixed relative {rel_mixed:.3e}")
+    check(rel <= 1e-5, "conv rich: fused f32 against the unfused route")
+    del xr, zr0
+
+    # serving: 600 images in chunks of 256 (the last one 88, padded)
+    rng = np.random.default_rng(15)
+    xs_serve = rng.standard_normal((CONV_SERVE, 1, 32, 32)).astype(np.float32)
+    t0 = time.perf_counter()
+    served = chunked_encode(xs_serve, W, alpha=CONV_ALPHA,
+                            chunk_size=CONV_CHUNK, algorithm="ista_conv2d",
+                            lr=lr, **base)
+    seconds = time.perf_counter() - t0
+    worst = 0.0
+    for start in range(0, CONV_SERVE, CONV_CHUNK):
+        xb = torch.from_numpy(xs_serve[start:start + CONV_CHUNK]).to(DEV)
+        zb = ista_conv2d(xb, torch.zeros((len(xb),) + tuple(z0.shape[1:]),
+                                         device=DEV), W, CONV_ALPHA, lr=lr,
+                         **base)
+        worst = max(worst, float(np.abs(served[start:start + len(xb)]
+                                        - zb.cpu().numpy()).max()))
+    print(f"[15] chunked_encode(algorithm='ista_conv2d') {CONV_SERVE} images "
+          f"in chunks of {CONV_CHUNK}: {seconds:.3f} s, codes "
+          f"{served.shape}, max|err| against direct calls {worst:.3e} "
+          f"(atol 1e-6)")
+    check(served.shape == (CONV_SERVE,) + tuple(z0.shape[1:])
+          and worst <= 1e-6, "chunked conv serving row for row")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1869,7 +2235,7 @@ def main():
     print(f"[0] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = _cuda.build(["fista", "cd", "group", "omp", "chol"],
+    logs = _cuda.build(["fista", "cd", "group", "omp", "chol", "conv"],
                        ptxas_verbose=True)
     print(f"[0] kernels built in {time.perf_counter() - t0:.2f} s")
     for line in "".join(logs.values()).splitlines():
@@ -1903,6 +2269,10 @@ def main():
     chol_row = phase_chol_solve()
     counts = phase_chol_full(*omp_problem())
     rows.append({**chol_row, "launches": counts["chol_solve"]})
+    conv_rows = phase_conv_kernels()
+    counts = phase_conv_slice()
+    for name, row in conv_rows.items():
+        rows.append({**row, "launches": counts.get(name, 0)})
 
     print(json.dumps({"kernels": rows}))
     print(card)

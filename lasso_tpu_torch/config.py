@@ -13,6 +13,11 @@ three names:
   accumulate), as ``lax.Precision.HIGH``.
 * ``'default'`` (alias ``'bfloat16'``): operands rounded to bf16, f32
   accumulate, as ``lax.Precision.DEFAULT`` on the TPU's matrix unit.
+
+The same names hold for convolutions. cuDNN runs a float32 convolution in
+TF32 unless ``torch.backends.cudnn.allow_tf32`` is False, and that flag is
+True by default (unlike the matmul flag), so every f32 convolution on a
+CUDA tensor calls :func:`require_fp32_conv` first.
 """
 
 from __future__ import annotations
@@ -69,3 +74,10 @@ def require_fp32_matmul():
     f32 paths promise f32-grade products."""
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def require_fp32_conv():
+    """Turn TF32 off for cuDNN convolutions and check that it is off: the
+    f32 conv paths promise f32-grade sums, and cuDNN's default is TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cudnn.allow_tf32

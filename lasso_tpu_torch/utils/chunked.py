@@ -39,22 +39,28 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
     a scalar alpha, and its keep-mask crosses to the host inside each
     dispatch, so the chunks then run one after another.
 
-    ``output='csr'`` (``csr_eps``) and ``algorithm='ista_conv2d'`` are not
-    ported yet and raise.
+    ``algorithm='ista_conv2d'`` streams a conv sparse-coding batch: x
+    ``[N, C_x, H, W]``, weight ``[C_z, C_x, kh, kw]``, codes ``[N, C_z,
+    H_z, W_z]`` from the conv geometry; ``stride``/``padding`` and the other
+    keywords go to :func:`lasso_tpu_torch.conv2d.ista_conv2d`. Dense output
+    only: with ``output='csr'`` or ``screen=True`` it raises ValueError.
+
+    ``output='csr'`` (``csr_eps``) is not ported yet and raises.
     """
     from lasso_tpu_torch.linear.screening import screened_encode
     from lasso_tpu_torch.linear.sparse_encode import sparse_encode
 
     if output not in ("dense", "csr"):
         raise ValueError(f"output must be 'dense' or 'csr', got {output!r}")
+    conv = algorithm == "ista_conv2d"
+    if conv and (output != "dense" or screen):
+        raise ValueError("ista_conv2d supports only output='dense' without "
+                         "screening (the CSR packer and gap-safe screening "
+                         "are 2-D code paths)")
     if output == "csr":
         raise NotImplementedError(
             "output='csr' needs the native CSR packer, which is not ported "
             "yet (ROADMAP A item 13)")
-    if algorithm == "ista_conv2d":
-        raise NotImplementedError(
-            "algorithm='ista_conv2d' needs the conv2d slice, which is not "
-            "ported yet (ROADMAP A item 11)")
     if device is None:
         device = weight.device if torch.is_tensor(weight) else "cuda"
     device = resolve_device(device)
@@ -62,11 +68,28 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
     N = x.shape[0]
     # codes follow x's dtype (sparse_encode initializes z0 as x.dtype)
     out_dtype = np.asarray(x[:0]).dtype
+    if conv:
+        from lasso_tpu_torch.conv2d.ista import ista_conv2d
+        from lasso_tpu_torch.conv2d.ops import _pair
+        conv_kw = {k: kwargs.pop(k) for k in ("stride", "padding")
+                   if k in kwargs}
+        (sh, sw), (ph, pw) = (_pair(conv_kw.get("stride", 1)),
+                              _pair(conv_kw.get("padding", 0)))
+        kh, kw = weight.shape[2], weight.shape[3]
+        code_shape = (weight.shape[0], (x.shape[2] + 2 * ph - kh) // sh + 1,
+                      (x.shape[3] + 2 * pw - kw) // sw + 1)
+    else:
+        code_shape = (weight.shape[1],)
     if out is None:
-        out = np.empty((N, weight.shape[1]), dtype=out_dtype)
+        out = np.empty((N,) + code_shape, dtype=out_dtype)
     if N == 0:
         return out
     chunk_size = min(chunk_size, N)
+    if conv:
+        z0_chunk = torch.zeros(
+            (chunk_size,) + code_shape,
+            dtype=torch.from_numpy(np.empty(0, out_dtype)).dtype,
+            device=device)
 
     a_arr = np.asarray(alpha)
     per_feature = (a_arr.ndim == 2 and a_arr.shape[0] == 1
@@ -102,6 +125,9 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
         if screen:
             zb = screened_encode(xb, weight, alpha, algorithm=algorithm,
                                  **(screen_kwargs or {}), **kwargs)
+        elif conv:
+            zb = ista_conv2d(xb, z0_chunk, weight, alpha=ab, **conv_kw,
+                             **kwargs)
         else:
             zb = sparse_encode(xb, weight, alpha=ab, algorithm=algorithm,
                                **kwargs)

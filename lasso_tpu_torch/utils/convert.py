@@ -3,8 +3,10 @@ the device.
 
 The JAX package keeps its arrays as numpy on the host between calls:
 the dictionary ``weight`` is ``[D, K]`` and codes reconstruct as
-``X_hat = Z @ W.T``. The port keeps that layout, so the arrays carry
-over unchanged as contiguous float32 tensors.
+``X_hat = Z @ W.T``; a conv dictionary is ``[C_z, C_x, kh, kw]`` with
+images ``[N, C_x, H, W]`` and codes ``[N, C_z, H_z, W_z]``. The port keeps
+those layouts, so the arrays carry over unchanged as contiguous float32
+tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ def resolve_device(device):
     return device
 
 
-def from_numpy_params(params, device):
+def from_numpy_params(params, device, padding=None):
     """Turn the JAX package's numpy parameters into float32 tensors.
 
     ``params`` maps names to arrays: the dictionary ``'weight'`` (``[D,
@@ -41,8 +43,22 @@ def from_numpy_params(params, device):
     contiguous float32 tensors on ``device``, after checking that the
     shapes agree; a block size stays a Python int, and an id array becomes
     an integer tensor of its own int32 or int64 type.
+
+    A 4-D ``'weight'`` is a conv dictionary ``[C_z, C_x, kh, kw]``; then
+    only ``'x'`` (``[N, C_x, H, W]``), ``'z0'`` (``[N, C_z, H_z, W_z]``)
+    and ``'alpha'`` (a scalar, per-sample ``[N]`` / ``[N, 1]``, or
+    per-channel ``[1, C_z]`` / ``[C_z]``) may come with it. At stride 1
+    ``H_z = H + 2 p - kh + 1`` (and likewise for the width): with
+    ``padding`` given, x and z0 are checked against it; without it, a
+    given pair x, z0 must agree with one padding p >= 0 of both axes.
     """
     device = resolve_device(device)
+    w = params.get("weight")
+    if w is not None and np.ndim(w) == 4:
+        return _conv_params(params, device, padding)
+    if padding is not None:
+        raise ValueError("padding applies only to a conv dictionary "
+                         "(a 4-D 'weight')")
     unknown = set(params) - {"weight", "weight0", "x", "z0", "alpha",
                              "atoms", "atoms_block", "A", "B", "groups",
                              "group_weights"}
@@ -115,3 +131,47 @@ def from_numpy_params(params, device):
     if groups is not None:
         out["groups"] = groups
     return out
+
+
+def _conv_params(params, device, padding):
+    """:func:`from_numpy_params` for a conv dictionary."""
+    unknown = set(params) - {"weight", "x", "z0", "alpha"}
+    if unknown:
+        raise ValueError(f"unknown parameters {sorted(unknown)} for a conv "
+                         f"dictionary")
+    arrays = {k: np.asarray(v, dtype=np.float32) for k, v in params.items()}
+    Cz, Cx, kh, kw = arrays["weight"].shape
+    x, z0 = arrays.get("x"), arrays.get("z0")
+    if x is not None and (x.ndim != 4 or x.shape[1] != Cx):
+        raise ValueError(f"x has shape {x.shape}, expected [N, {Cx}, H, W]")
+    if z0 is not None and (z0.ndim != 4 or z0.shape[1] != Cz):
+        raise ValueError(f"z0 has shape {z0.shape}, expected "
+                         f"[N, {Cz}, H_z, W_z]")
+    N = next((a.shape[0] for a in (x, z0) if a is not None), None)
+    if x is not None and z0 is not None:
+        if x.shape[0] != z0.shape[0]:
+            raise ValueError(f"x has {x.shape[0]} samples, z0 "
+                             f"{z0.shape[0]}")
+        # 2p = H_z - H + kh - 1 on both axes
+        two_p = {z0.shape[2] - x.shape[2] + kh - 1,
+                 z0.shape[3] - x.shape[3] + kw - 1}
+        if padding is not None:
+            ph, pw = np.broadcast_to(np.asarray(padding, int), (2,))
+            ok = two_p == {2 * ph, 2 * pw} and ph == pw
+        else:
+            ok = len(two_p) == 1 and min(two_p) >= 0 and min(two_p) % 2 == 0
+        if not ok:
+            raise ValueError(
+                f"x {x.shape} and z0 {z0.shape} do not agree with a "
+                f"{kh}x{kw} dictionary at stride 1 and padding "
+                f"{'one p >= 0' if padding is None else padding}: expected "
+                f"H_z = H + 2p - {kh} + 1 and W_z = W + 2p - {kw} + 1")
+    if "alpha" in arrays:
+        a = arrays["alpha"]
+        ok = (a.ndim == 0 or a.shape in ((1, Cz), (Cz,))
+              or (N is not None and a.shape in ((N,), (N, 1))))
+        if not ok:
+            raise ValueError(f"alpha has shape {a.shape}: expected a "
+                             f"scalar, [N], [N, 1], [1, {Cz}] or [{Cz}]")
+    return {k: torch.from_numpy(np.require(v, requirements=["C", "W"]))
+            .to(device) for k, v in arrays.items()}

@@ -6,8 +6,25 @@ versions. Only :func:`both` imports JAX, inside the call, so that the
 card-only tests can use this module on a machine without JAX.
 """
 
+import sys
+
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_after_module():
+    """JAX keeps every executable it compiles, each holding memory mappings
+    of its code, and a process may hold 65530. pytest-xdist runs the tests
+    of many files in one worker, and the JAX package's interpret-mode
+    tests leave tens of thousands there, so each port test file that
+    imports this fixture gives every executable back when a worker leaves
+    it."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()
 
 
 def make_problem(rng, n=32, d=128, k=256):

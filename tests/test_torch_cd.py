@@ -29,6 +29,7 @@ from lasso_tpu_torch.linear.solvers import coord_descent as tcd
 from lasso_tpu_torch.ops import fused_cd as tfused
 
 from _torch_port import n, objective, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 cd_module = importlib.import_module(
     "lasso_tpu_torch.linear.solvers.coordinate_descent")

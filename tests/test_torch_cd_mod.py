@@ -20,6 +20,7 @@ from lasso_tpu_torch.linear.solvers import coord_descent_mod as tcdm
 from lasso_tpu_torch.ops import fused_cd as tfused
 
 from _torch_port import n, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def cdm_problem(rng, n_=16, d=24, k=128):

@@ -21,6 +21,7 @@ from lasso_tpu_torch.__main__ import main as cli_main
 from lasso_tpu_torch.utils import from_numpy_params
 
 from _torch_port import n, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 jdl = importlib.import_module("lasso_tpu.linear.dict_learning")
 tdl = importlib.import_module("lasso_tpu_torch.linear.dict_learning")

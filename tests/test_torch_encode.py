@@ -20,6 +20,7 @@ from lasso_tpu_torch.linear import initialize_code, sparse_encode
 from lasso_tpu_torch.utils import chunked_encode, from_numpy_params
 
 from _torch_port import make_problem, n, objective, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 @pytest.mark.parametrize("mode", ["zero", "lstsq", "ridge", "transpose"])
@@ -115,9 +116,15 @@ def test_chunked_encode_options(rng):
     assert chunked_encode(x[:0], W, device="cpu").shape == (0, 128)
     with pytest.raises(ValueError):
         chunked_encode(x, W, output="coo", device="cpu")
-    for bad in ({"output": "csr"}, {"algorithm": "ista_conv2d"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            chunked_encode(x, W, device="cpu", **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        chunked_encode(x, W, device="cpu", output="csr")
+    # conv streams dense codes only, as in the JAX package
+    xc = rng.standard_normal((4, 1, 8, 8)).astype(np.float32)
+    Wc = rng.standard_normal((4, 1, 3, 3)).astype(np.float32)
+    for bad in ({"output": "csr"}, {"screen": True}):
+        with pytest.raises(ValueError, match="output='dense'"):
+            chunked_encode(xc, Wc, algorithm="ista_conv2d", device="cpu",
+                           **bad)
     with pytest.raises(ValueError):
         chunked_encode(x, W, np.ones(9, np.float32), device="cpu")
     with pytest.raises(ValueError, match="scalar alpha"):   # screen=True

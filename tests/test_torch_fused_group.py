@@ -22,6 +22,7 @@ from lasso_tpu_torch.ops import fused_group as TG
 from lasso_tpu_torch.ops import fused_ista as TF
 
 from _torch_port import make_problem, n, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def _ids(rng, k, g):

@@ -18,6 +18,7 @@ from lasso_tpu_torch.ops import _cuda
 from lasso_tpu_torch.ops import fused_ista as T
 
 from _torch_port import make_problem, n, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def _tol(kp):

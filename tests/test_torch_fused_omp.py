@@ -22,6 +22,7 @@ from lasso_tpu_torch.ops import batched_cholesky as TB
 from lasso_tpu_torch.ops import fused_omp as TF
 
 from _torch_port import assert_equivalent, n, omp_problem, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def scatter(idx, z_s, k):

@@ -63,18 +63,21 @@ def test_failed_library_load_raises(monkeypatch):
     omp = importlib.import_module("lasso_tpu_torch.ops.fused_omp")
     chol = importlib.import_module("lasso_tpu_torch.ops.batched_cholesky")
     basic = importlib.import_module("lasso_tpu_torch.linalg.basic")
+    conv = importlib.import_module("lasso_tpu_torch.ops.fused_conv")
+    conv_ista = importlib.import_module("lasso_tpu_torch.conv2d.ista")
     kernels = [*fused.FISTA_RESID.values(), *fused.FISTA_GRAD_PROX.values(),
                *cd.CD_STEPS.values(), cd.CD_MOD_SWEEP,
                *group.GROUP_PROX.values(), *omp.OMP_SELECT.values(),
                omp.OMP_ORTH, omp.OMP_BACKSUB, chol.CHOL_APPEND_SOLVE,
-               chol.CHOL_SOLVE]
+               chol.CHOL_SOLVE, *conv.CONV_DECODE_RESID.values(),
+               *conv.CONV_ADJOINT_PROX.values()]
     for k in kernels:
         monkeypatch.setattr(k, "_fn", None)
         before = k.launches
         with pytest.raises(RuntimeError, match="cannot build"):
             k(*([0] * len(k.argtypes)))
         assert k.launches == before
-    for mod in (fused, cd, group, omp, chol, basic, _cuda):
+    for mod in (fused, cd, group, omp, chol, basic, conv, conv_ista, _cuda):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))
 

@@ -19,6 +19,7 @@ import torch
 from lasso_tpu_torch.linear.solvers import ista as tista
 
 from _torch_port import both, make_problem, objective, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 # the module (the package's `ista` attribute is the function)
 ista_module = importlib.import_module("lasso_tpu_torch.linear.solvers.ista")

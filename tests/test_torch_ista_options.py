@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from _torch_port import both, make_problem, objective
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 @pytest.fixture

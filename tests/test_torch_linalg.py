@@ -22,6 +22,7 @@ from lasso_tpu_torch import linalg as tlinalg
 from lasso_tpu_torch.ops import batched_cholesky as tB
 
 from _torch_port import n, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def pd_systems(seed, B, D, scale=1.0):

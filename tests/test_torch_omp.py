@@ -27,6 +27,7 @@ from lasso_tpu_torch.utils import chunked_encode
 
 from _torch_port import (assert_equivalent, assert_same_fit, n,
                          omp_problem, rss, t)
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def both(x, W, T, **kw):

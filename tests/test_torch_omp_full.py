@@ -28,6 +28,7 @@ from lasso_tpu_torch.linear.solvers import orthogonal_matching_pursuit as tomp
 from lasso_tpu_torch.utils import chunked_encode
 
 from _torch_port import assert_same_fit, n, omp_problem, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 tdl = importlib.import_module("lasso_tpu_torch.linear.dict_learning")
 

@@ -18,6 +18,7 @@ from lasso_tpu_torch.linalg import basic, spectral
 from lasso_tpu_torch.ops import common, precision, shrink
 
 from _torch_port import n, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def test_precision_names_match_jax():

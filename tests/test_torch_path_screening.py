@@ -30,6 +30,7 @@ from lasso_tpu_torch.linear import (lasso_path, screen_atoms,
 from lasso_tpu_torch.utils import chunked_encode
 
 from _torch_port import n, t
+from _torch_port import release_jax_after_module  # noqa: F401
 
 
 def make_problem(rng, nn=12, d=24, k=96):
