@@ -9,7 +9,9 @@ It needs one CUDA card, builds the port's kernels from
 ``lasso_tpu_torch/csrc/`` and runs in phases; any failure exits non-zero
 before the last line is printed.
 
-0. The card's name and power limit, and the build time of the kernels.
+0. The card's name and power limit, the build time of the kernels, and
+   the HGMMA (warpgroup MMA) instructions in their SASS: in both K6a
+   kernels, and in no other kernel of ``omp`` or ``fista``.
 1. Each CUDA kernel against its plain PyTorch version on the card:
    ``fused_fista_step`` and ``fused_fista_multistep`` (S=4) in f32 and
    bf16, plain and with restart (multistep), a per-feature threshold row,
@@ -74,9 +76,11 @@ before the last line is printed.
    ``chunked_encode(screen=True)`` at alpha=3.5, where screening shrinks
    K, against the unscreened encode (atol 1e-4).
 10. The OMP kernels against their plain versions on the card: the fused
-   solve (K6a ``omp_select``, K6b ``omp_orth``, K6c ``omp_backsub`` of
+   solve (K6a ``omp_select`` on the tensor cores, K6b ``omp_orth``, K6d
+   ``omp_orth_cgs2`` with ``gs='cgs2'``, K6c ``omp_backsub`` of
    ``csrc/omp.cu``) at 1000x(256->512), N not a multiple of the 128-row
-   tile, with T=13 in f32 and bf16, with a tol freeze mid-run (T=16), by
+   tile, with each Gram-Schmidt, with T=13 in f32 (K6a's bf16x3 split) and
+   bf16, with a tol freeze mid-run (T=16), by
    the JAX tests' equivalence rule (codes atol 2e-4 where the supports
    agree, else the per-row rss rtol 1e-3) and validity equal; with
    duplicated atoms, finite codes and the per-row rss (rtol 1e-3) on every
@@ -85,13 +89,15 @@ before the last line is printed.
    over T appends from the identity (T=16 and 64, in place and into a
    new factor, every fifth system the identity) at rtol 2e-4 / atol
    1e-5. Then each entry at the headline width (16384x512->2048, T=64,
-   ``benchmarks/omp_fused_bench.py``'s problem): one solve in f32 and
-   one in bf16 with CUDA events around every launch, each held to the
-   plain solve of its precision by the headline rule below; K6a's
-   step-0 partials (rtol 1e-5 / atol 1e-6), K6b's step 32 from one state
-   (idx, valid and masks equal; r, q_k, R's column, d_k at rtol 2e-4 /
-   atol 1e-5) and K6c on the f32 solve's state (rtol 2e-4 / atol 1e-5)
-   against their plain versions; K7 over 64 appends against its plain
+   ``benchmarks/omp_fused_bench.py``'s problem): one solve in f32, one in
+   bf16 and one in f32 with ``gs='cgs2'``, with CUDA events around every
+   launch, each held to the plain solve of its precision and Gram-Schmidt
+   by the headline rule below; K6a's step-0 partials (rtol 1e-5 / atol
+   1e-6; bound: one bf16 product on the tensor cores, three in f32), K6b's
+   and K6d's step 32 from one state (idx, valid and masks equal; r, q_k,
+   R's column, d_k and r's bf16 split at rtol 2e-4 / atol 1e-5) and K6c on
+   the f32 solve's state (rtol 2e-4 / atol 1e-5) against their plain
+   versions; K7 over 64 appends against its plain
    version (rtol 2e-4 / atol 1e-5), and in place against a new factor at
    k=32. The plain versions are timed by CUDA-graph replays, which leave
    out the host's time to enqueue their many small ops; K6c's library
@@ -102,7 +108,10 @@ before the last line is printed.
    'fused' in bf16, 'chol' (64 ``chol_append_solve`` launches) and 'auto'
    with a tol that about half the rows reach; solves/s and ms a step;
    at most 64 nonzeros a row and finite codes; 'fused' and 'chol' by the
-   headline rule; the bf16 mean rss within 5e-2 of f32's; and
+   headline rule; the bf16 mean rss within 5e-2 of f32's;
+   ``fused_omp_solve(gs='cgs2')`` in f32 (64 ``omp_orth_cgs2`` launches,
+   no ``omp_orth``; solves/s), held to the 'mgs' solve by the headline
+   rule; and
    ``encode --algorithm omp`` through the CLI on 40000 rows in chunks of
    16384, against direct ``sparse_encode`` calls (the equivalence rule).
    The headline rule for two fits of 16384 rows: codes atol 2e-4 on the
@@ -176,6 +185,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import itertools
 import json
 import os
 import runpy
@@ -319,6 +329,24 @@ def kernel_ms_by_name(fn):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0}
+
+
+def sass_mma_counts(library):
+    """{mangled kernel name: HGMMA instructions} in the SASS of a built
+    library, read with the cuobjdump beside nvcc."""
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(_cuda.library_path(library))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            counts[kernel] = 0
+        elif kernel is not None and "HGMMA" in line:
+            counts[kernel] += 1
+    return counts
 
 
 def operands(n, d, k, seed):
@@ -1273,20 +1301,21 @@ def clone_state(state):
                          for f in dataclasses.fields(O.OmpState)})
 
 
-def timed_fused_solve(x, W, T, kp):
+def timed_fused_solve(x, W, T, kp, gs="mgs"):
     """One fused OMP solve through its three kernels, with CUDA events
     around every launch, enqueued behind ``hold_the_card``. Returns (the
     final state, the codes [N, K], per-step select ms, per-step orth ms,
     backsub ms)."""
     invn, wt = O.inverse_norms(W), W.T.contiguous()
+    wsplit = O.select_operands(W, kp)
     state = O.omp_init_state(x, W.shape[1], T)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * T + 2)]
     hold_the_card()
     for k in range(T):
         ev[2 * k].record()
-        O.omp_select(state, W, invn, kp)
+        O.omp_select(state, wsplit, invn, kp)
         ev[2 * k + 1].record()
-        O.omp_orth(state, wt, k)
+        O.omp_orth(state, wt, k, gs=gs)
     ev[2 * T].record()
     z_t = O.omp_backsub(state)
     ev[2 * T + 1].record()
@@ -1327,18 +1356,20 @@ def append_rows(M, rhs, k):
 
 
 def phase_omp_kernels():
-    """K6 (fused OMP: omp_select, omp_orth, omp_backsub) and K7
-    (chol_append_solve) against their plain versions on the card, then
-    each alone at the headline width: time, plain time, bound."""
-    for n, d, k, T, kp, tol, dup in (
+    """K6 (fused OMP: omp_select, omp_orth, omp_orth_cgs2, omp_backsub)
+    and K7 (chol_append_solve) against their plain versions on the card,
+    then each alone at the headline width: time, plain time, bound."""
+    for (n, d, k, T, kp, tol, dup), gs in itertools.product((
             (1000, 256, 512, 13, "f32", None, False),
             (1000, 256, 512, 13, "bf16", None, False),
             (1000, 256, 512, 16, "f32", 1e-4, False),
-            (1000, 256, 512, 16, "f32", None, True)):
+            (1000, 256, 512, 16, "f32", None, True)), ("mgs", "cgs2")):
         x, W = omp_case(n, d, k, T, seed=n + T, duplicate=dup)
-        got = O.fused_omp_solve(x, W, T, tol=tol, kernel_precision=kp)
+        got = O.fused_omp_solve(x, W, T, tol=tol, kernel_precision=kp,
+                                gs=gs)
         torch.cuda.synchronize()
-        want = O.fused_omp_solve_plain(x, W, T, tol=tol, kernel_precision=kp)
+        want = O.fused_omp_solve_plain(x, W, T, tol=tol, kernel_precision=kp,
+                                       gs=gs)
         za, zb = omp_codes(want[0], want[2], k), omp_codes(got[0], got[2], k)
         ok, share, err, rel, _ = omp_equivalent(x, W, za, zb)
         if dup:
@@ -1351,14 +1382,15 @@ def phase_omp_kernels():
         frozen = int((~got[1][:, -1]).sum())
         v_same = bool(torch.equal(got[1], want[1]))
         finite = bool(torch.isfinite(got[2]).all())
-        print(f"[10] fused_omp_solve {kp} {n}x{d}->{k} T={T} tol={tol} "
-              f"duplicated={dup}: supports equal on {share:.4f} of rows, "
+        print(f"[10] fused_omp_solve {kp} gs={gs} {n}x{d}->{k} T={T} "
+              f"tol={tol} duplicated={dup}: supports equal on {share:.4f} "
+              f"of rows, "
               f"codes max|err| {err:.3e} ({'not held' if dup else '2e-4'}), "
               f"rss max rel err {rel:.3e} (1e-3{', every row' if dup else ''}"
               f"), valid equal {v_same}, {frozen} rows frozen, finite "
               f"{finite}")
         check(ok and v_same and finite and (tol is None or frozen >= 24),
-              f"fused OMP {kp} T={T} tol={tol} duplicated={dup}")
+              f"fused OMP {kp} gs={gs} T={T} tol={tol} duplicated={dup}")
     for T, B_ in ((16, 1000), (64, 1000)):
         M, rhs = pd_rows(B_, T, seed=T)
         V = torch.eye(T, device=DEV)[:, :, None].repeat(1, 1, B_)
@@ -1382,103 +1414,123 @@ def phase_omp_kernels():
     x, W = (torch.from_numpy(a).to(DEV) for a in omp_problem())
     nK = K // O.TILE
     rows = {}
-    solve = {kp: timed_fused_solve(x, W, OMP_T, kp) for kp in ("f32", "bf16")}
-    for kp, (_, codes, *_) in solve.items():
-        idx, _, z_s = O.fused_omp_solve_plain(x, W, OMP_T, kernel_precision=kp)
-        print(f"[10] fused OMP {kp} at {N}x{D}->{K} T={OMP_T}, kernels "
-              f"against plain versions:")
+    solve = {(kp, gs): timed_fused_solve(x, W, OMP_T, kp, gs)
+             for kp, gs in (("f32", "mgs"), ("bf16", "mgs"), ("f32", "cgs2"))}
+    for (kp, gs), (_, codes, *_) in solve.items():
+        idx, _, z_s = O.fused_omp_solve_plain(x, W, OMP_T, kernel_precision=kp,
+                                              gs=gs)
+        print(f"[10] fused OMP {kp} gs={gs} at {N}x{D}->{K} T={OMP_T}, "
+              f"kernels against plain versions:")
         check(omp_agree_at_scale(x, W, omp_codes(idx, z_s, K), codes, 10, kp),
-              f"fused OMP {kp} at the headline against the plain version")
+              f"fused OMP {kp} gs={gs} at the headline against the plain "
+              f"version")
         del idx, z_s
     invn, wt = O.inverse_norms(W), W.T.contiguous()
     # K6a at step 0: the partials against the plain version's (rtol 1e-5,
-    # atol 1e-6); r and W read, invn, the mask, partials written; 2 N D K
-    # ops. Its plain version does the same work at every step: timed once.
+    # atol 1e-6). It reads r's and W^T's bf16 parts (hi and lo in f32, hi
+    # in bf16), invn and the mask, and writes the partials; its operations
+    # are 2 N D K bf16 ones on the tensor cores a product, three products
+    # in f32 (the bf16x3 split, the least time for this f32-grade work).
+    # Its plain version does the same work at every step: timed once.
     state = O.omp_init_state(x, K, OMP_T)
     for kp in ("f32", "bf16"):
         lib = torch.bfloat16 if kp == "bf16" else torch.float32
         rb, Wb = state.r.to(lib), W.to(lib)
-        O.omp_select(state, W, invn, kp)
+        wsplit = O.select_operands(W, kp)
+        O.omp_select(state, wsplit, invn, kp)
         got_v, got_i = state.pval.clone(), state.pidx.clone()
-        O.omp_select_plain(state, W, invn, kp)
+        O.omp_select_plain(state, wsplit, invn, kp)
         e = float((got_v - state.pval).abs().max())
         worst = rel_excess(got_v, state.pval, 1e-5)
         same_i = float((got_i == state.pidx).float().mean())
-        t_bytes = (4 * (N * D + D * K + K) + N * K + 8 * N * nK) \
-            / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * N * D * K / PEAK_FLOPS[kp] * 1e3
+        parts, products = (2, 3) if kp == "f32" else (1, 1)
+        t_bytes = (2 * parts * (N * D + D * K) + 4 * K + N * K
+                   + 8 * N * nK) / HBM_BYTES_PER_S * 1e3
+        t_ops = products * 2 * N * D * K / PEAK_FLOPS["bf16"] * 1e3
         rows[f"omp_select_{kp}"] = {
             "name": f"omp_select_{kp}", "route": "cuda",
             "source": OMP_SOURCE, "replaces": OMP_REPLACES,
             "launches": None, "max_abs_err": e,
-            "ms": sum(solve[kp][2]) / OMP_T,
-            "plain_ms": graph_ms(lambda: O.omp_select_plain(state, W, invn,
-                                                            kp)),
+            "ms": sum(solve[kp, "mgs"][2]) / OMP_T,
+            "plain_ms": graph_ms(lambda: O.omp_select_plain(state, wsplit,
+                                                            invn, kp)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": cuda_ms(lambda: torch.matmul(rb, Wb))}
         print(f"[10] {json.dumps(rows[f'omp_select_{kp}'])} (ms: mean of "
               f"the {OMP_T} launches of one solve; plain_ms: CUDA-graph "
-              f"replays; library: torch.matmul r W in {lib}; max_abs_err: "
+              f"replays; bound: {products} bf16 product(s) on the tensor "
+              f"cores; library: torch.matmul r W in {lib}; max_abs_err: "
               f"the step-0 partial scores, max(|err| - 1e-5 |plain|) "
               f"{worst:.3e} (atol 1e-6), atoms equal on {same_i:.6f})")
         check(worst <= 1e-6, f"omp_select_{kp} partials at the headline")
     del state, rb, Wb
-    # K6b at step T / 2 from one state: the kernel on it, the plain
-    # version on a copy; idx, valid, the masks equal, r, q_k, R's column
-    # and d_k at rtol 2e-4 / atol 1e-5
+    # K6b and K6d at step T / 2 from one state: the kernel on it, the
+    # plain version on a copy; idx, valid, the masks equal, r, q_k, R's
+    # column, d_k and r's kept split (hi + lo) at rtol 2e-4 / atol 1e-5
     k2 = OMP_T // 2
-    st = O.omp_init_state(x, K, OMP_T)
-    for kk in range(k2):
-        O.omp_select(st, W, invn, "f32")
-        O.omp_orth(st, wt, kk)
-    O.omp_select(st, W, invn, "f32")
-    twin = clone_state(st)
-    O.omp_orth(st, wt, k2)
-    O.omp_orth_plain(twin, wt, k2)
-    exact = all(torch.equal(a, c) for a, c in (
-        (st.idx[:, k2], twin.idx[:, k2]), (st.valid[:, k2], twin.valid[:, k2]),
-        (st.active, twin.active), (st.sel, twin.sel)))
-    pairs = ((st.r, twin.r), (st.Q[:, k2], twin.Q[:, k2]),
-             (st.R[:, k2, :k2 + 1], twin.R[:, k2, :k2 + 1]),
-             (st.d[:, k2], twin.d[:, k2]))
-    e_orth = max(float((a - c).abs().max()) for a, c in pairs)
-    worst = max(rel_excess(a, c, 2e-4) for a, c in pairs)
-    del st, twin, pairs
-    check(exact and worst <= 1e-5, f"omp_orth at step {k2}")
-    # K6b's ms and bound are means over the steps of the f32 solve: at
-    # step k it reads the partials, r, k rows of Q, the atom (W^T once),
-    # writes r, q_k, R column k and the per-row slots; 4 k D + 6 D ops a
-    # row. Its plain version at every step on a copy of the final state.
-    kern = solve["f32"]
-    scratch = clone_state(kern[0])
-    plain_orth = [graph_ms(lambda: O.omp_orth_plain(scratch, wt, kk))
-                  for kk in range(OMP_T)]
-    del scratch
-    nbytes = sum(4 * (N * (2 * D + kk * D + D + kk + 1 + 4) + K * D)
-                 + 8 * N * nK + N for kk in range(OMP_T)) / OMP_T
-    ops = sum(N * (4 * kk * D + 6 * D) for kk in range(OMP_T)) / OMP_T
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS["f32"] * 1e3
-    rows["omp_orth"] = {
-        "name": "omp_orth", "route": "cuda", "source": OMP_SOURCE,
-        "replaces": OMP_REPLACES, "launches": None, "max_abs_err": e_orth,
-        "ms": sum(kern[3]) / OMP_T, "plain_ms": sum(plain_orth) / OMP_T,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}
-    print(f"[10] {json.dumps(rows['omp_orth'])} (means over the {OMP_T} "
-          f"steps of one f32 solve; at steps 0, {k2}, {OMP_T - 1}: "
-          f"{kern[3][0]:.4f}, {kern[3][k2]:.4f}, {kern[3][-1]:.4f} ms, plain "
-          f"{plain_orth[0]:.4f}, {plain_orth[k2]:.4f}, {plain_orth[-1]:.4f} "
-          f"ms (CUDA-graph replays); max_abs_err: r, q_k, R's column and d_k "
-          f"at step {k2} from one state, max(|err| - 2e-4 |plain|) "
-          f"{worst:.3e} (atol 1e-5), idx, valid and masks equal {exact}; no "
-          f"PyTorch call does Gram-Schmidt with the freeze: library null)")
+    wsplit = O.select_operands(W)
+    for gs, name in (("mgs", "omp_orth"), ("cgs2", "omp_orth_cgs2")):
+        st = O.omp_init_state(x, K, OMP_T)
+        for kk in range(k2):
+            O.omp_select(st, wsplit, invn)
+            O.omp_orth(st, wt, kk, gs=gs)
+        O.omp_select(st, wsplit, invn)
+        twin = clone_state(st)
+        O.omp_orth(st, wt, k2, gs=gs)
+        O.omp_orth_plain(twin, wt, k2, gs=gs)
+        exact = all(torch.equal(a, c) for a, c in (
+            (st.idx[:, k2], twin.idx[:, k2]),
+            (st.valid[:, k2], twin.valid[:, k2]),
+            (st.active, twin.active), (st.sel, twin.sel)))
+        pairs = ((st.r, twin.r), (st.Q[:, k2], twin.Q[:, k2]),
+                 (st.R[:, k2, :k2 + 1], twin.R[:, k2, :k2 + 1]),
+                 (st.d[:, k2], twin.d[:, k2]),
+                 (st.rb.float().sum(0), twin.rb.float().sum(0)))
+        e_orth = max(float((a - c).abs().max()) for a, c in pairs)
+        worst = max(rel_excess(a, c, 2e-4) for a, c in pairs)
+        del st, twin, pairs
+        check(exact and worst <= 1e-5, f"{name} at step {k2}")
+        # ms and bound are means over the steps of the f32 solve: at step
+        # k it reads the partials, r, k rows of Q, the atom (W^T once),
+        # writes r, r's split, q_k, R column k and the per-row slots; 4 k D
+        # + 6 D ops a row with MGS, 8 k D + 6 D with CGS2. Its plain
+        # version at every step on a copy of the final state.
+        kern = solve["f32", gs]
+        scratch = clone_state(kern[0])
+        plain_orth = [graph_ms(lambda: O.omp_orth_plain(scratch, wt, kk,
+                                                        gs=gs))
+                      for kk in range(OMP_T)]
+        del scratch
+        nbytes = sum(4 * (N * (3 * D + kk * D + D + kk + 1 + 4) + K * D)
+                     + 8 * N * nK + N for kk in range(OMP_T)) / OMP_T
+        per_k = 4 if gs == "mgs" else 8
+        ops = sum(N * (per_k * kk * D + 6 * D)
+                  for kk in range(OMP_T)) / OMP_T
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS["f32"] * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda", "source": OMP_SOURCE,
+            "replaces": OMP_REPLACES, "launches": None,
+            "max_abs_err": e_orth, "ms": sum(kern[3]) / OMP_T,
+            "plain_ms": sum(plain_orth) / OMP_T,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+        print(f"[10] {json.dumps(rows[name])} (means over the {OMP_T} "
+              f"steps of one f32 solve; at steps 0, {k2}, {OMP_T - 1}: "
+              f"{kern[3][0]:.4f}, {kern[3][k2]:.4f}, {kern[3][-1]:.4f} ms, "
+              f"plain {plain_orth[0]:.4f}, {plain_orth[k2]:.4f}, "
+              f"{plain_orth[-1]:.4f} ms (CUDA-graph replays); max_abs_err: "
+              f"r, q_k, R's column, d_k and r's split at step {k2} from one "
+              f"state, max(|err| - 2e-4 |plain|) {worst:.3e} (atol 1e-5), "
+              f"idx, valid and masks equal {exact}; no PyTorch call does "
+              f"Gram-Schmidt with the freeze: library null)")
     # K6c on the f32 solve's final state against its plain version (rtol
     # 2e-4 / atol 1e-5) and the library's triangular solve: R's upper
     # triangle, d and valid read, z written. The state keeps R transposed
     # (row j holds column j), a lower triangle: z^T L = d^T.
+    kern = solve["f32", "mgs"]
     fin = kern[0]
     valid = fin.valid > 0
     z_k, z_p = O.omp_backsub(fin), O.omp_backsub_plain(fin)
@@ -1644,6 +1696,34 @@ def phase_omp_slice(x_np, W_np):
     print(f"[11] bf16 selection: mean rss {rel_bf16:.3e} relative from f32's "
           f"(at most 5e-2)")
     check(rel_bf16 <= 5e-2, "bf16 mean rss within 5e-2 of f32's")
+
+    # gs='cgs2' through the fused solve's entry (the solver passes no gs,
+    # as the JAX package's), counts set to 0 just before and read after:
+    # 64 K6d launches and no K6b; held to the 'mgs' solve ('auto' above)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx, valid, z_s = O.fused_omp_solve(x, W, OMP_T, gs="cgs2")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cg_counts = _cuda.launch_counts()
+    z = omp_codes(idx, z_s, K)
+    print(f"[11] omp gs=cgs2: {1 / seconds:.3f} solves/s ({seconds:.4f} s, "
+          f"{seconds / OMP_T * 1e3:.3f} ms a step), mean rss "
+          f"{float(omp_rss64(x, W, z).mean()):.6f}, launches "
+          f"{json.dumps({k: v for k, v in cg_counts.items() if v})}")
+    check(bool(torch.isfinite(z).all()) and int(valid.sum(1).max()) <= OMP_T,
+          "omp gs=cgs2: codes")
+    for key, v in {"fused_omp_solve": 1, "omp_select_f32": OMP_T,
+                   "omp_orth_cgs2": OMP_T, "omp_orth": 0,
+                   "omp_backsub": 1}.items():
+        check(cg_counts.get(key, 0) == v,
+              f"omp gs=cgs2 {key}: {cg_counts.get(key, 0)} != {v}")
+    counts["omp_orth_cgs2"] = cg_counts["omp_orth_cgs2"]
+    print("[11] cgs2 against mgs:")
+    check(omp_agree_at_scale(x, W, z_of["auto"], z, 11),
+          "cgs2 and mgs agree at the headline")
+    del idx, valid, z_s, z
 
     # serving through the CLI, in chunks of CLI_CHUNK rows
     rng = np.random.default_rng(11)
@@ -2241,6 +2321,19 @@ def main():
     for line in "".join(logs.values()).splitlines():
         if "registers" in line or "spill" in line:
             print(f"[0] ptxas: {line.strip()}")
+    # K6a runs on the tensor cores (warpgroup MMA, HGMMA in SASS) in both
+    # precisions; K1 and K2 are still SIMT
+    omp_mma, fista_mma = sass_mma_counts("omp"), sass_mma_counts("fista")
+    k6a = {kp: sum(v for k, v in omp_mma.items()
+                   if f"omp_select_kernelILb{int(kp == 'f32')}" in k)
+           for kp in ("f32", "bf16")}
+    print(f"[0] HGMMA in the SASS: omp_select_f32 {k6a['f32']}, "
+          f"omp_select_bf16 {k6a['bf16']}, the other omp kernels "
+          f"{sum(omp_mma.values()) - sum(k6a.values())}, fista (K1, K2) "
+          f"{sum(fista_mma.values())}")
+    check(min(k6a.values()) > 0 and sum(fista_mma.values()) == 0
+          and sum(omp_mma.values()) == sum(k6a.values()),
+          "HGMMA in K6a only")
 
     phase_kernel_cases()
     rows = phase_kernel_timing()

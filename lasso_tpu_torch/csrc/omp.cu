@@ -1,5 +1,4 @@
-// The whole batched OMP solve as three hand-written kernels for Hopper
-// (sm_90a).
+// The whole batched OMP solve as hand-written kernels for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of the JAX package's ops/fused_omp.py:
 //   fused_omp_solve (_make_omp_kernel, pallas_call at fused_omp.py:308)
@@ -12,12 +11,21 @@
 // runs T steps from the host, two launches a step on the current stream
 // with no host sync, then one back-substitution:
 //
-//   K6a omp_select:  c = r W over a 128 x 128 tile (the tile product of K2,
-//                    csrc/tile_product.cuh), then the epilogue
+//   K6a omp_select:  c = r W over a 128-row x 128-atom tile on the tensor
+//                    cores (csrc/wgmma_product.cuh), then the epilogue
 //                    score = sel ? -1 : |c| * invn and the first maximum of
-//                    each row over the tile's 128 columns, written as one
-//                    (value, index) partial per row and column tile. The
-//                    grid is K2's, so every SM has blocks to run.
+//                    each row over the tile's 128 atoms, written as one
+//                    (value, index) partial per row and atom tile. It
+//                    replaces the TPU kernel's selection product
+//                    (fused_omp.py:113-122, W^T split at :283-288): in f32
+//                    the same bf16x3 split, r_hi W_hi + r_lo W_hi + r_hi
+//                    W_lo, three MMAs a 16-deep slice into one FP32
+//                    accumulator; in bf16 one MMA of bf16(r) and bf16(W).
+//                    W^T is split once a solve by the wrapper ([K, D] bf16,
+//                    K-major for the MMA). r changes every step: K6b and
+//                    K6d keep its split beside it (rb [2, N, D] bf16, hi
+//                    and lo, written with r), so that K6a brings both
+//                    operands into shared memory by cp.async alone.
 //   K6b omp_orth:    one warp per sample. It reduces the row's partials to
 //                    the first-max atom k* (ties to the lower index, as
 //                    jnp.argmax and torch.argmax), applies the rss freeze
@@ -30,20 +38,40 @@
 //                    max(|w_perp|^2, 1e-12 |w|^2 + 1e-30), writes q_k,
 //                    column k of R and d_k = q_k . r, and updates r. A frozen
 //                    sample writes q_k = 0, R column e_k and d_k = 0
-//                    (fused_omp.py:186-193).
+//                    (fused_omp.py:186-193). With r it writes rb, r's
+//                    bf16x3 split, for the next step's K6a.
+//   K6d omp_orth_cgs2: K6b with the orthogonalisation of gs='cgs2'
+//                    (fused_omp.py:149-163): classical Gram-Schmidt in two
+//                    bulk passes, c1_t = q_t . w for all t < k, w -= sum
+//                    c1_t q_t, c2_t = q_t . w, w -= sum c2_t q_t, R[t, k] =
+//                    c1_t + c2_t. The TPU kernel reads all T rows of a
+//                    zeroed Q; K6d reads the k live rows only (the state's
+//                    Q is not cleared), which is the same arithmetic, since
+//                    the coefficients of the rows >= k are exactly 0. The k
+//                    dot products of a pass are independent (no t-chain):
+//                    four are summed in one sweep over w and reduced
+//                    together. Everything else is K6b's.
 //   K6c omp_backsub: one warp per sample, the column-oriented
 //                    back-substitution R z = d once after step T.
 //
-// What bounds it at N=16384, D=512, K=2048, T=64 in f32: the selection
-// products, 64 x 2NDK = 2.2 TFLOP, are 32.8 ms at the 67 TFLOP/s of FP32
-// outside the tensor cores (0.513 ms a launch of K6a, K2's bound); the MGS
-// reads of Q, sum_k k N D 4 B = 67.6 GB, are 20.2 ms at 3.35 TB/s. So
-// the solve is bound by K6a's operations; K6b at step k is bound by its
-// k N D 4 bytes of Q (about k x 0.010 ms). K6a is a SIMT FP32 product like
-// K2, in f32 true FP32 and in bf16 with both operands rounded to bf16 and
-// FP32 sums; wgmma is what would move it. K6b keeps the gathered atom in shared
-// memory, lane-strided, so that Q is read once per step, coalesced, and its
-// chain of dot products needs only warp shuffles.
+// What bounds it at N=16384, D=512, K=2048, T=64. K6a: 2NDK = 34.4 GFLOP a
+// launch in bf16, three times that in f32, at the 989 TFLOP/s of bf16 on
+// the tensor cores: 0.035 ms and 0.104 ms, both above the 0.010 ms to read
+// r. Its tile is 128 x 128 with a ring of 3 stages of 64-deep operands in
+// f32 (6 in bf16) filled by cp.async from a producer warpgroup, so two
+// consumer warpgroups keep MMAs in flight while the next stages load; each
+// block reads its rows of rb and W^T from L2 once per atom tile: 1 GB a
+// launch in f32 (0.5 GB in bf16), 96 operations a byte, which the card's
+// L2 rate, not the tensor cores, bounds at these tiles (PERF.md). A first
+// version converted r from f32 in the producer's registers; those held
+// 32 KB of loads in flight an SM, too few for L2's latency, and bf16 took
+// nearly f32's time. So r's split is kept beside r and loaded by cp.async.
+// K6b at step k: its k N D 4 bytes of Q (about k x 0.010 ms; with r, its
+// split and the rest 0.358 ms averaged over the 64 steps); K6b keeps the
+// gathered atom in shared memory, lane-strided, so that Q is read once per
+// step, coalesced, and its chain of dot products needs only warp shuffles.
+// K6d has the same bound and reads the k rows four times (two per pass),
+// from L2 where they are still there.
 //
 // Each C entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
@@ -54,7 +82,7 @@
 #include <cmath>
 #include <cstddef>
 
-#include "tile_product.cuh"
+#include "wgmma_product.cuh"
 
 namespace {
 
@@ -77,59 +105,163 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// K6a: per row n and column tile b, the first maximum of
-// score = sel ? -1 : |(r W)[n, k]| * invn[k] over the tile's columns;
-// grid (N/BM, K/BN).
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-    omp_select_kernel(const float* __restrict__ r,
-                      const float* __restrict__ w,
+// K6a: per row n and atom tile b, the first maximum of
+// score = sel ? -1 : |(r W)[n, k]| * invn[k] over the tile's 128 atoms;
+// grid (ceil(N / 128), K / 128), one block of 384 threads per tile.
+constexpr int SEL_STRIDE = 144;   // bytes a staged mask row: no bank
+                                  // conflicts between a quad's 8 rows
+
+template <bool SPLIT>
+constexpr size_t select_smem() {
+  return wgp::Ring<SPLIT>::BYTES + wgp::BM * SEL_STRIDE + wgp::BN * 4 +
+         16 * wgp::Ring<SPLIT>::STAGES + 1024;   // + alignment slack
+}
+
+template <bool SPLIT>
+__global__ void __launch_bounds__(wgp::THREADS, 1)
+    omp_select_kernel(const __nv_bfloat16* __restrict__ rb,
+                      const __nv_bfloat16* __restrict__ wt_hi,
+                      const __nv_bfloat16* __restrict__ wt_lo,
                       const float* __restrict__ invn,
                       const unsigned char* __restrict__ sel,
                       float* __restrict__ pval, int* __restrict__ pidx,
                       int N, int D, int K) {
-  __shared__ float As[BK][BM + PAD];
-  __shared__ float Bs[BK][BN + PAD];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  using Ring = wgp::Ring<SPLIT>;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  const uint32_t raw = wgp::smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const unsigned char* sel_s = smem_raw + (ring - raw) + Ring::BYTES;
+  const float* invn_s =
+      reinterpret_cast<const float*>(sel_s + wgp::BM * SEL_STRIDE);
+  const uint32_t sel_a = ring + Ring::BYTES;
+  const uint32_t invn_a = sel_a + wgp::BM * SEL_STRIDE;
+  const uint32_t full = invn_a + wgp::BN * 4, empty = full + 8 * Ring::STAGES;
+  const int row0 = blockIdx.x * wgp::BM, col0 = blockIdx.y * wgp::BN;
   const int nK = gridDim.y;
+  const int tid = threadIdx.x, wg = tid >> 7;
 
-  float acc[TM][TN] = {};
-  product_rw<BF16>(r, w, As, Bs, acc, row0, col0, N, D, K);
+  if (tid == 0) {
+    for (int s = 0; s < Ring::STAGES; ++s) {
+      wgp::mbar_init(full + 8 * s, 128);
+      wgp::mbar_init(empty + 8 * s, 128 * wgp::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == wgp::CONSUMERS) {
+    wgp::produce<SPLIT>(rb, rb + (size_t)N * D, wt_hi, wt_lo, row0, col0, N,
+                        D, ring, full, empty, tid - 128 * wgp::CONSUMERS);
+    return;
+  }
 
+  // the consumers stage the tile's mask rows (coalesced, 16 bytes a copy)
+  // and invn while the products run
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int n = row0 + ty + TY * i;
+  for (int i = 0; i < 4; ++i) {
+    const int q = tid + 256 * i, row = q >> 3, part = q & 7;
+    if (row0 + row < N)
+      wgp::cp_async16(sel_a + row * SEL_STRIDE + 16 * part,
+                      sel + (size_t)(row0 + row) * K + col0 + 16 * part);
+  }
+  if (tid < wgp::BN / 4)
+    wgp::cp_async16(invn_a + 16 * tid, invn + col0 + 4 * tid);
+
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  wgp::consume<SPLIT>(d, D, ring, full, empty, wg);
+  wgp::cp_async_wait_all();
+  wgp::consumers_sync();
+
+  // The accumulator layout of m64nNk16: warp w of the warpgroup holds rows
+  // 16 w + lane / 4 (registers 4 j, 4 j + 1) and 16 w + lane / 4 + 8
+  // (4 j + 2, 4 j + 3), at columns 8 j + 2 (lane % 4) + {0, 1}. A thread
+  // scans its 32 columns of a row in ascending order, then the 4 lanes of
+  // its quad combine; better() keeps the first maximum in any order.
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
     float bv = -INFINITY;
     int bi = INT_MAX;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {   // columns ascend with j
-      const int k = col0 + tx + TX * j;
-      if (n < N && k < K) {
-        const float s = sel[(size_t)n * K + k]
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = 8 * j + 2 * (lane & 3) + e;
+        const float s = sel_s[rl * SEL_STRIDE + cl]
                             ? -1.f
-                            : __fmul_rn(fabsf(acc[i][j]), invn[k]);
-        better(bv, bi, s, k);
+                            : __fmul_rn(fabsf(d[4 * j + 2 * h + e]),
+                                        invn_s[cl]);
+        better(bv, bi, s, col0 + cl);
       }
     }
-    // the TX threads of a row are 16 consecutive lanes of one warp
 #pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1) {
+    for (int off = 1; off < 4; off <<= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
       const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
       better(bv, bi, ov, oi);
     }
-    if (tx == 0 && n < N) {
+    const int n = row0 + rl;
+    if ((lane & 3) == 0 && n < N) {
       pval[(size_t)n * nK + blockIdx.y] = bv;
       pidx[(size_t)n * nK + blockIdx.y] = bi;
     }
   }
 }
 
-// K6b: step k of one warp's sample. w holds the warp's [D] slice of
-// shared memory; lane l owns the entries d = l + 32 m of every D-vector, so
-// the MGS chain needs no synchronization beyond the warp's shuffles.
+// One pass of classical Gram-Schmidt for K6d: c[t] = q_t . w for all t < k
+// (independent dot products, four summed in one sweep over w and reduced
+// together), then w -= sum_t c[t] q_t. qn is the sample's Q, c the warp's
+// [T] coefficients in shared memory.
+__device__ __forceinline__ void cgs_pass(const float* __restrict__ qn,
+                                         float* w, float* c, int k, int D,
+                                         int lane) {
+  int t = 0;
+  for (; t + 4 <= k; t += 4) {
+    const float* q0 = qn + (size_t)t * D;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    for (int e = lane; e < D; e += 32) {
+      const float we = w[e];
+      s0 = fmaf(q0[e], we, s0);
+      s1 = fmaf(q0[D + e], we, s1);
+      s2 = fmaf(q0[2 * D + e], we, s2);
+      s3 = fmaf(q0[3 * D + e], we, s3);
+    }
+    s0 = warp_sum(s0);
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    s3 = warp_sum(s3);
+    if (lane == 0) {
+      c[t] = s0;
+      c[t + 1] = s1;
+      c[t + 2] = s2;
+      c[t + 3] = s3;
+    }
+  }
+  for (; t < k; ++t) {
+    const float* qt = qn + (size_t)t * D;
+    float s0 = 0.f;
+    for (int e = lane; e < D; e += 32) s0 = fmaf(qt[e], w[e], s0);
+    s0 = warp_sum(s0);
+    if (lane == 0) c[t] = s0;
+  }
+  __syncwarp();
+  for (int e = lane; e < D; e += 32) {
+    float s = 0.f;
+    for (int u = 0; u < k; ++u) s = fmaf(c[u], qn[(size_t)u * D + e], s);
+    w[e] = __fsub_rn(w[e], s);
+  }
+  __syncwarp();
+}
+
+// K6b (CGS2 false) and K6d (CGS2 true): step k of one warp's sample. w is
+// the warp's [D] slice of shared memory (followed, for K6d, by [2 T]
+// coefficients c1, c2); lane l owns the entries d = l + 32 m of every
+// D-vector, so the Gram-Schmidt stage needs no synchronization beyond the
+// warp's shuffles.
+template <bool CGS2>
 __global__ void __launch_bounds__(OWARPS * 32)
     omp_orth_kernel(const float* __restrict__ pval,
                     const int* __restrict__ pidx, int nK,
@@ -137,13 +269,14 @@ __global__ void __launch_bounds__(OWARPS * 32)
                     float* __restrict__ q, float* __restrict__ R,
                     float* __restrict__ d, int* __restrict__ idx,
                     float* __restrict__ valid, float* __restrict__ active,
-                    unsigned char* __restrict__ sel, float tol, int k, int N,
+                    unsigned char* __restrict__ sel,
+                    __nv_bfloat16* __restrict__ rb, float tol, int k, int N,
                     int D, int K, int T) {
   extern __shared__ float wsm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = blockIdx.x * OWARPS + warp;
   if (n >= N) return;   // the whole warp leaves together
-  float* w = wsm + (size_t)warp * D;
+  float* w = wsm + (size_t)warp * (CGS2 ? D + 2 * T : D);
   float* rn = r + (size_t)n * D;
 
   // the tol freeze on the squared residual
@@ -181,7 +314,7 @@ __global__ void __launch_bounds__(OWARPS * 32)
     return;
   }
 
-  // gather the atom, then modified Gram-Schmidt against q_0 .. q_{k-1}
+  // gather the atom, then Gram-Schmidt against q_0 .. q_{k-1}
   const float* wrow = wt + (size_t)kstar * D;
   float w0n = 0.f;
   for (int e = lane; e < D; e += 32) {
@@ -190,14 +323,24 @@ __global__ void __launch_bounds__(OWARPS * 32)
     w0n = fmaf(v, v, w0n);
   }
   w0n = warp_sum(w0n);
-  for (int t = 0; t < k; ++t) {
-    const float* qt = q + ((size_t)n * T + t) * D;
-    float cf = 0.f;
-    for (int e = lane; e < D; e += 32) cf = fmaf(qt[e], w[e], cf);
-    cf = warp_sum(cf);
-    for (int e = lane; e < D; e += 32)
-      w[e] = __fsub_rn(w[e], __fmul_rn(cf, qt[e]));
-    if (lane == 0) Rk[t] = cf;
+  const float* qn = q + (size_t)n * T * D;
+  if (CGS2) {
+    float* c1 = w + D;
+    float* c2 = c1 + T;
+    __syncwarp();
+    cgs_pass(qn, w, c1, k, D, lane);
+    cgs_pass(qn, w, c2, k, D, lane);
+    for (int t = lane; t < k; t += 32) Rk[t] = __fadd_rn(c1[t], c2[t]);
+  } else {
+    for (int t = 0; t < k; ++t) {   // modified Gram-Schmidt: a t-chain
+      const float* qt = qn + (size_t)t * D;
+      float cf = 0.f;
+      for (int e = lane; e < D; e += 32) cf = fmaf(qt[e], w[e], cf);
+      cf = warp_sum(cf);
+      for (int e = lane; e < D; e += 32)
+        w[e] = __fsub_rn(w[e], __fmul_rn(cf, qt[e]));
+      if (lane == 0) Rk[t] = cf;
+    }
   }
   float nrm2 = 0.f;
   for (int e = lane; e < D; e += 32) nrm2 = fmaf(w[e], w[e], nrm2);
@@ -215,8 +358,15 @@ __global__ void __launch_bounds__(OWARPS * 32)
     dk = fmaf(v, rn[e], dk);
   }
   dk = warp_sum(dk);
-  for (int e = lane; e < D; e += 32)
-    rn[e] = __fsub_rn(rn[e], __fmul_rn(dk, w[e]));
+  __nv_bfloat16* rbn = rb + (size_t)n * D;   // r's split: hi, then lo
+  __nv_bfloat16* rbl = rbn + (size_t)N * D;   // N D further on
+  for (int e = lane; e < D; e += 32) {
+    const float v = __fsub_rn(rn[e], __fmul_rn(dk, w[e]));
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    rn[e] = v;
+    rbn[e] = hi;
+    rbl[e] = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(hi)));
+  }
   if (lane == 0) {
     Rk[k] = __fsqrt_rn(pivot);
     d[slot] = dk;
@@ -249,16 +399,6 @@ __global__ void __launch_bounds__(OWARPS * 32)
   }
 }
 
-template <bool BF16>
-int launch_select(const float* r, const float* w, const float* invn,
-                  const unsigned char* sel, float* pval, int* pidx, int N,
-                  int D, int K, void* stream) {
-  const dim3 grid((N + BM - 1) / BM, (K + BN - 1) / BN);
-  omp_select_kernel<BF16><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      r, w, invn, sel, pval, pidx, N, D, K);
-  return (int)cudaGetLastError();
-}
-
 // dynamic shared memory above 48 KB needs the kernel's opt-in
 template <typename Kernel>
 int smem_opt_in(Kernel kernel, size_t bytes) {
@@ -267,40 +407,89 @@ int smem_opt_in(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-}  // namespace
-
-// r [N, D], w [D, K], invn [K], sel [N, K] (0/1 bytes); writes the
-// partials pval, pidx [N, ceil(K / 128)].
-extern "C" int omp_select_f32(const float* r, const float* w,
-                              const float* invn, const unsigned char* sel,
-                              float* pval, int* pidx, int N, int D, int K,
-                              void* stream) {
-  return launch_select<false>(r, w, invn, sel, pval, pidx, N, D, K, stream);
+template <bool SPLIT>
+int launch_select(const __nv_bfloat16* rb, const __nv_bfloat16* wt_hi,
+                  const __nv_bfloat16* wt_lo, const float* invn,
+                  const unsigned char* sel, float* pval, int* pidx, int N,
+                  int D, int K, void* stream) {
+  if (N < 1 || D % wgp::BK != 0 || K % wgp::BN != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = select_smem<SPLIT>();
+  const int e = smem_opt_in(omp_select_kernel<SPLIT>, smem);
+  if (e != 0) return e;
+  const dim3 grid((N + wgp::BM - 1) / wgp::BM, K / wgp::BN);
+  omp_select_kernel<SPLIT><<<grid, wgp::THREADS, smem,
+                             (cudaStream_t)stream>>>(rb, wt_hi, wt_lo, invn,
+                                                     sel, pval, pidx, N, D,
+                                                     K);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int omp_select_bf16(const float* r, const float* w,
-                               const float* invn, const unsigned char* sel,
-                               float* pval, int* pidx, int N, int D, int K,
-                               void* stream) {
-  return launch_select<true>(r, w, invn, sel, pval, pidx, N, D, K, stream);
+template <bool CGS2>
+int launch_orth(const float* pval, const int* pidx, int nK, const float* wt,
+                float* r, float* q, float* R, float* d, int* idx,
+                float* valid, float* active, unsigned char* sel,
+                __nv_bfloat16* rb, float tol, int k, int N, int D, int K,
+                int T, void* stream) {
+  const size_t smem =
+      (size_t)OWARPS * (CGS2 ? D + 2 * T : D) * sizeof(float);
+  const int e = smem_opt_in(omp_orth_kernel<CGS2>, smem);
+  if (e != 0) return e;
+  omp_orth_kernel<CGS2><<<(N + OWARPS - 1) / OWARPS, OWARPS * 32, smem,
+                          (cudaStream_t)stream>>>(pval, pidx, nK, wt, r, q,
+                                                  R, d, idx, valid, active,
+                                                  sel, rb, tol, k, N, D, K,
+                                                  T);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rb [2, N, D] bf16, the split of r (hi, lo); wt_hi, wt_lo [K, D] bf16,
+// the split of W^T (D a multiple of 64, K of 128); invn [K], sel [N, K]
+// (0/1 bytes); writes the partials pval, pidx [N, K / 128].
+extern "C" int omp_select_f32(const __nv_bfloat16* rb,
+                              const __nv_bfloat16* wt_hi,
+                              const __nv_bfloat16* wt_lo, const float* invn,
+                              const unsigned char* sel, float* pval,
+                              int* pidx, int N, int D, int K, void* stream) {
+  return launch_select<true>(rb, wt_hi, wt_lo, invn, sel, pval, pidx, N, D,
+                             K, stream);
+}
+
+// as omp_select_f32 with one product of the hi parts; the lo parts are
+// not read
+extern "C" int omp_select_bf16(const __nv_bfloat16* rb,
+                               const __nv_bfloat16* wt_hi,
+                               const __nv_bfloat16* wt_lo, const float* invn,
+                               const unsigned char* sel, float* pval,
+                               int* pidx, int N, int D, int K, void* stream) {
+  return launch_select<false>(rb, wt_hi, wt_lo, invn, sel, pval, pidx, N, D,
+                              K, stream);
 }
 
 // Step k: wt = W^T [K, D]; r [N, D], q [N, T, D], R [N, T, T] (column j of
 // sample n at R[n, j, :]), d, valid [N, T] float, idx [N, T] int32,
-// active [N] float 0/1, sel [N, K] bytes, all updated in place.
+// active [N] float 0/1, sel [N, K] bytes, rb [2, N, D] bf16 (r's split),
+// all updated in place.
 extern "C" int omp_orth(const float* pval, const int* pidx, int nK,
                         const float* wt, float* r, float* q, float* R,
                         float* d, int* idx, float* valid, float* active,
-                        unsigned char* sel, float tol, int k, int N, int D,
-                        int K, int T, void* stream) {
-  const size_t smem = (size_t)OWARPS * D * sizeof(float);
-  const int e = smem_opt_in(omp_orth_kernel, smem);
-  if (e != 0) return e;
-  omp_orth_kernel<<<(N + OWARPS - 1) / OWARPS, OWARPS * 32, smem,
-                    (cudaStream_t)stream>>>(pval, pidx, nK, wt, r, q, R, d,
-                                            idx, valid, active, sel, tol, k,
-                                            N, D, K, T);
-  return (int)cudaGetLastError();
+                        unsigned char* sel, __nv_bfloat16* rb, float tol,
+                        int k, int N, int D, int K, int T, void* stream) {
+  return launch_orth<false>(pval, pidx, nK, wt, r, q, R, d, idx, valid,
+                            active, sel, rb, tol, k, N, D, K, T, stream);
+}
+
+// omp_orth with two-pass classical Gram-Schmidt (gs='cgs2')
+extern "C" int omp_orth_cgs2(const float* pval, const int* pidx, int nK,
+                             const float* wt, float* r, float* q, float* R,
+                             float* d, int* idx, float* valid, float* active,
+                             unsigned char* sel, __nv_bfloat16* rb,
+                             float tol, int k, int N, int D, int K, int T,
+                             void* stream) {
+  return launch_orth<true>(pval, pidx, nK, wt, r, q, R, d, idx, valid,
+                           active, sel, rb, tol, k, N, D, K, T, stream);
 }
 
 // z [N, T] = R^-1 d per sample, zero where valid is 0.

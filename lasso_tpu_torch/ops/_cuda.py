@@ -159,10 +159,11 @@ def check_shapes(want):
                              f"{shape}")
 
 
-def check_cuda(int32=(), uint8=(), **tensors):
+def check_cuda(int32=(), uint8=(), bfloat16=(), **tensors):
     """The kernels take contiguous float32 tensors (int32 for the names in
-    ``int32``, uint8 for those in ``uint8``) on one CUDA device (None
-    stands for a missing optional one); anything else raises."""
+    ``int32``, uint8 for those in ``uint8``, bfloat16 for those in
+    ``bfloat16``) on one CUDA device (None stands for a missing optional
+    one); anything else raises."""
     import torch
     device = None
     for name, t in tensors.items():
@@ -175,7 +176,8 @@ def check_cuda(int32=(), uint8=(), **tensors):
         elif t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         dtype = (torch.int32 if name in int32 else
-                 torch.uint8 if name in uint8 else torch.float32)
+                 torch.uint8 if name in uint8 else
+                 torch.bfloat16 if name in bfloat16 else torch.float32)
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():

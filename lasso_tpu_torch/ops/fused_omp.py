@@ -8,7 +8,8 @@ with other rounding. With ``r_0 = x``, step k of each sample is
     c    = r W                              (correlations)
     k*   = argmax |c| / ||w||               (masked by the selected set)
     w    = W[:, k*]
-    w   -= sum_t (q_t . w) q_t              (MGS; R[t, k] = the coefficient)
+    w   -= sum_t (q_t . w) q_t              (MGS, or CGS2 with gs='cgs2';
+                                             R[t, k] = the coefficient)
     q_k  = w / ||w||,  R[k, k] = ||w||      (with a relative pivot floor)
     d_k  = q_k . r,    r -= d_k q_k
 
@@ -21,11 +22,12 @@ the state (Q alone is ``N T D`` floats) lives in device memory in an
 :class:`OmpState`, and :func:`fused_omp_solve` runs T steps of two kernels
 of ``csrc/omp.cu`` from the host, then one back-substitution:
 
-* :func:`omp_select` (K6a): the correlation product with the masked
-  first-max epilogue, one ``(score, atom)`` partial per row and
-  128-column tile;
-* :func:`omp_orth` (K6b): the partials' first maximum, the freeze, the
-  atom gather, MGS, ``q_k``, R, ``d_k`` and the residual update;
+* :func:`omp_select` (K6a): the correlation product on the tensor cores
+  with the masked first-max epilogue, one ``(score, atom)`` partial per
+  row and 128-atom tile;
+* :func:`omp_orth` (K6b, or K6d with ``gs='cgs2'``): the partials' first
+  maximum, the freeze, the atom gather, Gram-Schmidt, ``q_k``, R,
+  ``d_k`` and the residual update;
 * :func:`omp_backsub` (K6c): ``R z = d``.
 
 Each entry launches its kernel on a CUDA tensor (or raises) and runs its
@@ -33,9 +35,11 @@ plain version (``omp_select_plain``, ``omp_orth_plain``,
 ``omp_backsub_plain``) on a CPU tensor; :func:`fused_omp_solve_plain`
 composes the plain versions.
 
-``kernel_precision`` sets the selection product only: ``'f32'`` is true
-FP32 (the TPU kernel's is a bf16x3 split), ``'bf16'`` rounds r and W to
-bf16 with FP32 sums. The solve itself is always FP32.
+``kernel_precision`` sets the selection product only, as in the TPU
+kernel: ``'f32'`` is its bf16x3 split (``r_hi W_hi + r_lo W_hi + r_hi
+W_lo``, FP32 sums; f32-grade), ``'bf16'`` rounds r and W to bf16 with
+FP32 sums. W^T is split once a solve (:func:`select_operands`), r at
+every step. The solve itself is always FP32.
 """
 
 from __future__ import annotations
@@ -48,21 +52,22 @@ import torch
 from lasso_tpu_torch.config import require_fp32_matmul
 from lasso_tpu_torch.ops import _cuda
 from lasso_tpu_torch.ops.precision import (check_kernel_precision,
-                                           round_bf16)
+                                           round_bf16, split_bf16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # the C entries of csrc/omp.cu
 OMP_SELECT = {kp: _cuda.CudaKernel("omp", f"omp_select_{kp}",
-                                   [_P] * 6 + [_I] * 3 + [_P])
+                                   [_P] * 7 + [_I] * 3 + [_P])
               for kp in ("f32", "bf16")}
-OMP_ORTH = _cuda.CudaKernel("omp", "omp_orth",
-                            [_P, _P, _I] + [_P] * 9 + [_F] + [_I] * 5 + [_P])
+_ORTH_ARGS = [_P, _P, _I] + [_P] * 10 + [_F] + [_I] * 5 + [_P]
+OMP_ORTH = {"mgs": _cuda.CudaKernel("omp", "omp_orth", _ORTH_ARGS),
+            "cgs2": _cuda.CudaKernel("omp", "omp_orth_cgs2", _ORTH_ARGS)}
 OMP_BACKSUB = _cuda.CudaKernel("omp", "omp_backsub", [_P] * 4 + [_I] * 2
                                + [_P])
-TILE = 128        # columns per partial: BN of csrc/tile_product.cuh
+TILE = 128        # atoms per partial: BN of csrc/wgmma_product.cuh
 _WARPS = 8        # samples per K6b block, each with a [D] row in shared memory
-_MAX_D = 227 * 1024 // (_WARPS * 4)
+_MAX_D = 227 * 1024 // (_WARPS * 4)   # floats a K6b warp may hold
 
 
 def supports_fused_omp(N, D, K, T, dtype):
@@ -79,12 +84,15 @@ def supports_fused_omp(N, D, K, T, dtype):
 class OmpState:
     """The fused solve's state, updated in place by the steps.
 
-    r [N, D] residual; sel [N, K] uint8 selected mask; active [N] float 0/1;
-    Q [N, T, D] basis rows; R [N, T, T] with column j of sample n at
-    ``R[n, j]``; d, valid [N, T] float; idx [N, T] int32; pval, pidx
-    [N, ceil(K / 128)] the selection partials of the current step.
+    r [N, D] residual; rb [2, N, D] bfloat16 its split ``split_bf16(r)``
+    (hi, lo), kept beside it for K6a; sel [N, K] uint8 selected mask;
+    active [N] float 0/1; Q [N, T, D] basis rows; R [N, T, T] with column
+    j of sample n at ``R[n, j]``; d, valid [N, T] float; idx [N, T] int32;
+    pval, pidx [N, ceil(K / 128)] the selection partials of the current
+    step.
     """
     r: torch.Tensor
+    rb: torch.Tensor
     sel: torch.Tensor
     active: torch.Tensor
     Q: torch.Tensor
@@ -106,6 +114,7 @@ def omp_init_state(x, K, T):
     f32 = dict(dtype=torch.float32, device=dev)
     return OmpState(
         r=x.clone(memory_format=torch.contiguous_format),
+        rb=torch.stack(split_bf16(x)).to(torch.bfloat16),
         sel=torch.zeros((N, K), dtype=torch.uint8, device=dev),
         active=torch.ones((N,), **f32),
         Q=torch.empty((N, T, D), **f32),
@@ -124,39 +133,67 @@ def inverse_norms(weight):
                                         min=1e-30))
 
 
-def omp_select(state, weight, invn, kernel_precision="f32"):
+def select_operands(weight, kernel_precision="f32"):
+    """K6a's B operand, made once a solve: ``W^T`` [K, D] in bf16,
+    contiguous along D, as ``(hi, lo)``: the bf16x3 split of the TPU
+    wrapper (fused_omp.py:283-285) for ``'f32'``, or ``(bf16(W^T), None)``
+    for ``'bf16'``."""
+    check_kernel_precision(kernel_precision)
+    wt = weight.T.contiguous()
+    if kernel_precision == "bf16":
+        return wt.to(torch.bfloat16), None
+    hi, lo = split_bf16(wt)
+    return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+def omp_select(state, wsplit, invn, kernel_precision="f32"):
     """K6a: write the selection partials of the current residual into
-    ``state.pval`` / ``state.pidx``: for each row and 128-column tile the
-    largest ``sel ? -1 : |(r W)[n, k]| * invn[k]`` and its first atom."""
+    ``state.pval`` / ``state.pidx``: for each row and 128-atom tile the
+    largest ``sel ? -1 : |(r W)[n, k]| * invn[k]`` and its first atom.
+    ``wsplit`` is :func:`select_operands` of W in the same precision. The
+    kernel reads r's split ``state.rb``, which the state keeps with r."""
     check_kernel_precision(kernel_precision)
     if state.r.device.type == "cpu":
-        return omp_select_plain(state, weight, invn, kernel_precision)
+        return omp_select_plain(state, wsplit, invn, kernel_precision)
     N, D = state.r.shape
-    K = weight.shape[1]
-    _cuda.check_cuda(int32=("pidx",), uint8=("sel",), r=state.r,
-                     weight=weight, invn=invn, sel=state.sel,
-                     pval=state.pval, pidx=state.pidx)
-    _cuda.check_shapes({"weight": (weight, (D, K)), "invn": (invn, (K,)),
-                        "sel": (state.sel, (N, K)),
-                        "pval": (state.pval, (N, -(-K // TILE)))})
+    hi, lo = wsplit
+    K = hi.shape[0]
+    if (lo is None) != (kernel_precision == "bf16"):
+        raise ValueError(f"wsplit does not match kernel_precision="
+                         f"{kernel_precision!r}")
+    if D % 64 or K % TILE:
+        raise ValueError(f"omp_select takes D a multiple of 64 and K of "
+                         f"{TILE}, got D={D}, K={K}")
+    _cuda.check_cuda(int32=("pidx",), uint8=("sel",),
+                     bfloat16=("rb", "hi", "lo"), rb=state.rb, hi=hi, lo=lo,
+                     invn=invn, sel=state.sel, pval=state.pval,
+                     pidx=state.pidx)
+    _cuda.check_shapes({"rb": (state.rb, (2, N, D)), "hi": (hi, (K, D)),
+                        "lo": (lo, (K, D)),
+                        "invn": (invn, (K,)), "sel": (state.sel, (N, K)),
+                        "pval": (state.pval, (N, K // TILE))})
     OMP_SELECT[kernel_precision](
-        state.r.data_ptr(), weight.data_ptr(), invn.data_ptr(),
+        state.rb.data_ptr(), hi.data_ptr(), _cuda.ptr(lo), invn.data_ptr(),
         state.sel.data_ptr(), state.pval.data_ptr(), state.pidx.data_ptr(),
         N, D, K, _cuda.stream())
 
 
-def omp_select_plain(state, weight, invn, kernel_precision="f32"):
+def omp_select_plain(state, wsplit, invn, kernel_precision="f32"):
     """The plain version of :func:`omp_select`, on any device: the same
-    product (true FP32, or both operands rounded to bf16 with FP32 sums)
-    and the same masked scores, reduced per 128-column tile to the first
-    maximum."""
+    product (the bf16x3 split ``r_hi W_hi + r_lo W_hi + r_hi W_lo``, or
+    bf16 operands, with FP32 sums) and the same masked scores, reduced per
+    128-atom tile to the first maximum."""
     check_kernel_precision(kernel_precision)
-    r, w = state.r, weight
-    if kernel_precision == "bf16":
-        r, w = round_bf16(r), round_bf16(w)
+    r = state.r
+    hi, lo = (None if w is None else w.float().T for w in wsplit)
     if r.is_cuda:
         require_fp32_matmul()
-    score = torch.where(state.sel.bool(), -1.0, torch.abs(r @ w) * invn)
+    if kernel_precision == "bf16":
+        c = round_bf16(r) @ hi
+    else:
+        r_hi, r_lo = split_bf16(r)
+        c = r_hi @ hi + r_lo @ hi + r_hi @ lo
+    score = torch.where(state.sel.bool(), -1.0, torch.abs(c) * invn)
     N, K = score.shape
     nK = -(-K // TILE)
     tiles = torch.nn.functional.pad(score, (0, nK * TILE - K),
@@ -167,32 +204,39 @@ def omp_select_plain(state, weight, invn, kernel_precision="f32"):
     state.pidx.copy_(at[..., 0] + base)
 
 
-def omp_orth(state, wt, k, tol=None):
-    """K6b: step k after :func:`omp_select`. ``wt`` is ``W^T`` [K, D]
-    (contiguous rows for the gather); ``tol`` (None disables the freeze)
-    freezes a sample whose squared residual is at or below it. Updates
-    ``state`` in place."""
+def omp_orth(state, wt, k, tol=None, gs="mgs"):
+    """K6b (``gs='mgs'``) or K6d (``gs='cgs2'``): step k after
+    :func:`omp_select`. ``wt`` is ``W^T`` [K, D] (contiguous rows for the
+    gather); ``tol`` (None disables the freeze) freezes a sample whose
+    squared residual is at or below it. Updates ``state`` in place."""
+    _check_gs(gs)
     if state.r.device.type == "cpu":
-        return omp_orth_plain(state, wt, k, tol)
+        return omp_orth_plain(state, wt, k, tol, gs)
     N, D = state.r.shape
     K = wt.shape[0]
     T = state.Q.shape[1]
-    _cuda.check_cuda(int32=("pidx", "idx"), uint8=("sel",), wt=wt,
+    _cuda.check_cuda(int32=("pidx", "idx"), uint8=("sel",),
+                     bfloat16=("rb",), wt=wt,
                      **{f.name: getattr(state, f.name)
                         for f in dataclasses.fields(OmpState)})
     _cuda.check_shapes({"wt": (wt, (K, D)), "sel": (state.sel, (N, K)),
+                        "rb": (state.rb, (2, N, D)),
                         "Q": (state.Q, (N, T, D)), "R": (state.R, (N, T, T))})
     if not 0 <= k < T:
         raise ValueError(f"step {k} is outside [0, {T})")
-    if D > _MAX_D:
-        raise ValueError(f"D={D} exceeds omp_orth's shared memory "
-                         f"(D <= {_MAX_D})")
-    OMP_ORTH(state.pval.data_ptr(), state.pidx.data_ptr(),
-             state.pval.shape[1], wt.data_ptr(), state.r.data_ptr(),
-             state.Q.data_ptr(), state.R.data_ptr(), state.d.data_ptr(),
-             state.idx.data_ptr(), state.valid.data_ptr(),
-             state.active.data_ptr(), state.sel.data_ptr(),
-             _tol(tol), int(k), N, D, K, T, _cuda.stream())
+    # K6d's warp also holds its two passes' [T] coefficients
+    held = D + 2 * T if gs == "cgs2" else D
+    if held > _MAX_D:
+        raise ValueError(f"D={D}{f', T={T}' if gs == 'cgs2' else ''} "
+                         f"exceeds omp_orth's shared memory ({held} > "
+                         f"{_MAX_D} floats a sample)")
+    OMP_ORTH[gs](state.pval.data_ptr(), state.pidx.data_ptr(),
+                 state.pval.shape[1], wt.data_ptr(), state.r.data_ptr(),
+                 state.Q.data_ptr(), state.R.data_ptr(), state.d.data_ptr(),
+                 state.idx.data_ptr(), state.valid.data_ptr(),
+                 state.active.data_ptr(), state.sel.data_ptr(),
+                 state.rb.data_ptr(), _tol(tol), int(k), N, D, K, T,
+                 _cuda.stream())
 
 
 def _tol(tol):
@@ -202,9 +246,19 @@ def _tol(tol):
                                  dtype=torch.float32))
 
 
-def omp_orth_plain(state, wt, k, tol=None):
+def _cgs_pass(Qk, w):
+    """One classical Gram-Schmidt pass batched over the samples: the
+    coefficients ``c_t = q_t . w`` of the k rows of Qk [N, k, D] at once,
+    and ``w - sum_t c_t q_t``."""
+    c = torch.matmul(Qk, w[:, :, None])[..., 0]                 # [N, k]
+    return c, w - torch.matmul(c[:, None, :], Qk)[:, 0]
+
+
+def omp_orth_plain(state, wt, k, tol=None, gs="mgs"):
     """The plain version of :func:`omp_orth`, on any device: the same steps
-    batched over the samples, MGS as a loop over the k live basis rows."""
+    batched over the samples, MGS as a loop over the k live basis rows,
+    CGS2 as two bulk passes over them."""
+    _check_gs(gs)
     r = state.r
     N = r.shape[0]
     rows = torch.arange(N, device=r.device)
@@ -219,11 +273,19 @@ def omp_orth_plain(state, wt, k, tol=None):
     actf = act.float()[:, None]
     w = wt[kstar]                                           # [N, D]
     w0n = torch.sum(w * w, dim=1)
-    for t in range(k):
-        qt = state.Q[:, t]
-        cf = torch.sum(qt * w, dim=1)
-        w = w - cf[:, None] * qt
-        state.R[:, k, t] = cf * actf[:, 0]
+    if gs == "cgs2":
+        if r.is_cuda:
+            require_fp32_matmul()
+        Qk = state.Q[:, :k]
+        c1, w = _cgs_pass(Qk, w)
+        c2, w = _cgs_pass(Qk, w)
+        state.R[:, k, :k] = (c1 + c2) * actf
+    else:
+        for t in range(k):
+            qt = state.Q[:, t]
+            cf = torch.sum(qt * w, dim=1)
+            w = w - cf[:, None] * qt
+            state.R[:, k, t] = cf * actf[:, 0]
     nrm2 = torch.sum(w * w, dim=1)
     pivot = torch.maximum(nrm2, 1e-12 * w0n + 1e-30)
     qk = w * torch.rsqrt(pivot)[:, None] * actf
@@ -232,6 +294,7 @@ def omp_orth_plain(state, wt, k, tol=None):
     state.Q[:, k] = qk
     state.d[:, k] = dk
     state.r.copy_(r - dk[:, None] * qk)
+    state.rb.copy_(torch.stack(split_bf16(state.r)))
 
 
 def omp_backsub(state):
@@ -262,12 +325,7 @@ def omp_backsub_plain(state):
 
 
 def _check_gs(gs):
-    if gs == "cgs2":
-        raise NotImplementedError(
-            "gs='cgs2' (two-pass classical Gram-Schmidt, the JAX package's "
-            "measured counter-hypothesis) is not ported yet (ROADMAP A item "
-            "7, next: gs='cgs2')")
-    if gs != "mgs":
+    if gs not in ("mgs", "cgs2"):
         raise ValueError(f"gs must be 'mgs' or 'cgs2', got {gs!r}")
 
 
@@ -283,11 +341,12 @@ def fused_omp_solve(x, weight, T, tol=None, kernel_precision="f32",
     x: [N, D], weight: [D, K]. Returns ``(idx, valid, z_s)``, each [N, T]:
     the support indices (int32), slot validity (False once the ``tol``
     residual stop froze the sample) and the codes on the support (zero
-    where not valid). On a CUDA tensor each step is K6a + K6b on the
-    current stream with no host sync, then K6c; on a CPU tensor the plain
-    versions run. The TPU arguments ``interpret`` and ``profile`` have no
-    counterpart (the profiling variants belong to the JAX package's
-    roofline bench).
+    where not valid). ``gs`` is the Gram-Schmidt of each step: 'mgs'
+    (modified, K6b) or 'cgs2' (classical in two bulk passes, K6d). On a
+    CUDA tensor each step is K6a + K6b (or K6d) on the current stream with
+    no host sync, then K6c; on a CPU tensor the plain versions run. The
+    TPU arguments ``interpret`` and ``profile`` have no counterpart (the
+    profiling variants belong to the JAX package's roofline bench).
     """
     check_kernel_precision(kernel_precision)
     _check_gs(gs)
@@ -297,10 +356,11 @@ def fused_omp_solve(x, weight, T, tol=None, kernel_precision="f32",
         _cuda.WRAPPER_CALLS["fused_omp_solve"] += 1
     invn = inverse_norms(weight)
     wt = weight.T.contiguous()
+    wsplit = select_operands(weight, kernel_precision)
     state = omp_init_state(x, K, T)
     for k in range(T):
-        omp_select(state, weight, invn, kernel_precision)
-        omp_orth(state, wt, k, tol)
+        omp_select(state, wsplit, invn, kernel_precision)
+        omp_orth(state, wt, k, tol, gs)
     return _outputs(state, omp_backsub(state))
 
 
@@ -312,8 +372,9 @@ def fused_omp_solve_plain(x, weight, T, tol=None, kernel_precision="f32",
     _check_gs(gs)
     invn = inverse_norms(weight)
     wt = weight.T.contiguous()
+    wsplit = select_operands(weight, kernel_precision)
     state = omp_init_state(x, weight.shape[1], T)
     for k in range(T):
-        omp_select_plain(state, weight, invn, kernel_precision)
-        omp_orth_plain(state, wt, k, tol)
+        omp_select_plain(state, wsplit, invn, kernel_precision)
+        omp_orth_plain(state, wt, k, tol, gs)
     return _outputs(state, omp_backsub_plain(state))

@@ -1,0 +1,157 @@
+"""lasso_tpu_torch's fused OMP kernels on a CUDA card: K6a ``omp_select``
+on the tensor cores and K6d ``omp_orth_cgs2`` (the ``gs='cgs2'`` step)
+against their plain versions, and the launches of a cgs2 solve.
+
+Every test here is marked ``gpu`` and skips where there is no card. This
+file imports neither JAX nor the JAX package; on a machine that has only
+PyTorch, run the card's tests without the JAX-based conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py -q
+
+Tolerances: K6a's partial scores at rtol 1e-5 / atol 1e-6 (the same
+products summed in another order), its atoms equal except where the two
+atoms' plain scores lie within 1e-5 relative; K6d's step outputs at rtol
+2e-4 / atol 1e-5 (as K6b's in chip_smoke.py), whole solves by the
+equivalence rule of tests/test_fused_omp.py:31-43 with validity equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lasso_tpu_torch.ops import _cuda
+from lasso_tpu_torch.ops import fused_omp as T_O
+from lasso_tpu_torch.ops.precision import split_bf16
+
+from _torch_port import assert_equivalent, n, omp_problem, t
+
+pytestmark = pytest.mark.gpu
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _scores(state, wsplit, invn, kp):
+    """The dense masked scores of the plain version's product."""
+    hi, lo = (None if w is None else w.float().T for w in wsplit)
+    if kp == "bf16":
+        c = split_bf16(state.r)[0] @ hi
+    else:
+        r_hi, r_lo = split_bf16(state.r)
+        c = r_hi @ hi + r_lo @ hi + r_hi @ lo
+    return torch.where(state.sel.bool(), -1.0, torch.abs(c) * invn)
+
+
+@pytest.mark.parametrize("kp", ["f32", "bf16"])
+@pytest.mark.parametrize("N", [1, 63, 1000, 4097])
+def test_select_kernel_matches_plain(N, kp):
+    """K6a at ragged N (rows past N masked) for D in {128, 512} and K in
+    {128, 2048}, about 5% of the atoms already selected."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for D in (128, 512):
+        for K in (128, 2048):
+            g = torch.Generator(device="cuda").manual_seed(N + D + K)
+            x = torch.randn(N, D, generator=g, device="cuda")
+            W = torch.randn(D, K, generator=g, device="cuda")
+            W = W / W.norm(dim=0)
+            state = T_O.omp_init_state(x, K, 4)
+            state.sel.copy_(torch.rand(N, K, generator=g, device="cuda")
+                            < 0.05)
+            invn = T_O.inverse_norms(W)
+            wsplit = T_O.select_operands(W, kp)
+            before = T_O.OMP_SELECT[kp].launches
+            T_O.omp_select(state, wsplit, invn, kp)
+            torch.cuda.synchronize()
+            assert T_O.OMP_SELECT[kp].launches - before == 1
+            gv, gi = state.pval.clone(), state.pidx.clone()
+            T_O.omp_select_plain(state, wsplit, invn, kp)
+            np.testing.assert_allclose(n(gv), n(state.pval), rtol=1e-5,
+                                       atol=1e-6)
+            score = _scores(state, wsplit, invn, kp)
+            a = torch.gather(score, 1, gi.long())
+            b = torch.gather(score, 1, state.pidx.long())
+            part = gi != state.pidx
+            assert bool(((a - b).abs() <= 1e-5 * b.abs())[part].all())
+            assert bool((gi // T_O.TILE == torch.arange(
+                K // T_O.TILE, device="cuda")).all())
+
+
+def test_select_refuses_what_it_does_not_take():
+    _need_card()
+    x = torch.randn(8, 96, device="cuda")
+    W = torch.randn(96, 128, device="cuda")
+    state = T_O.omp_init_state(x, 128, 2)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        T_O.omp_select(state, T_O.select_operands(W), T_O.inverse_norms(W))
+    x = torch.randn(8, 128, device="cuda")
+    W = torch.randn(128, 128, device="cuda")
+    state = T_O.omp_init_state(x, 128, 2)
+    with pytest.raises(ValueError, match="kernel_precision"):
+        T_O.omp_select(state, T_O.select_operands(W, "bf16"),
+                       T_O.inverse_norms(W), "f32")
+    hi, lo = T_O.select_operands(W)
+    with pytest.raises(ValueError, match="bfloat16"):
+        T_O.omp_select(state, (hi.float(), lo), T_O.inverse_norms(W))
+
+
+@pytest.mark.parametrize("T", [13, 64])
+def test_cgs2_kernel_matches_plain(T):
+    """K6d at step T - 1 from one state (idx, valid and masks equal; r, its
+    kept split, q_k, R's column and d_k at rtol 2e-4 / atol 1e-5), and a
+    whole cgs2 solve with rows that freeze under tol against the plain
+    solve."""
+    _need_card()
+    x, W = omp_problem(T, 600, 256, 512)
+    z = np.zeros((8, 512), np.float32)
+    z[:, 1:4] = np.random.default_rng(1).standard_normal((8, 3))
+    x[:8] = z @ W.T
+    xc, Wc = t(x).cuda(), t(W).cuda()
+    wsplit, invn = T_O.select_operands(Wc), T_O.inverse_norms(Wc)
+    wt = Wc.T.contiguous()
+    st = T_O.omp_init_state(xc, 512, T)
+    for k in range(T - 1):
+        T_O.omp_select(st, wsplit, invn)
+        T_O.omp_orth(st, wt, k, gs="cgs2")
+    T_O.omp_select(st, wsplit, invn)
+    twin = T_O.OmpState(**{f: getattr(st, f).clone()
+                           for f in st.__dataclass_fields__})
+    T_O.omp_orth(st, wt, T - 1, gs="cgs2")
+    T_O.omp_orth_plain(twin, wt, T - 1, gs="cgs2")
+    k = T - 1
+    for a, c in ((st.idx[:, k], twin.idx[:, k]), (st.sel, twin.sel),
+                 (st.valid[:, k], twin.valid[:, k])):
+        assert torch.equal(a, c)
+    for a, c in ((st.r, twin.r), (st.Q[:, k], twin.Q[:, k]),
+                 (st.R[:, k, :k + 1], twin.R[:, k, :k + 1]),
+                 (st.d[:, k], twin.d[:, k]),
+                 (st.rb.float().sum(0), twin.rb.float().sum(0))):
+        np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
+    got = T_O.fused_omp_solve(xc, Wc, T, tol=1e-6, gs="cgs2")
+    want = T_O.fused_omp_solve_plain(xc, Wc, T, tol=1e-6, gs="cgs2")
+    np.testing.assert_array_equal(n(got[1]), n(want[1]))
+    assert n(got[1])[:8].sum(axis=1).max() <= 4
+
+    def codes(idx, z_s):
+        zz = torch.zeros((idx.shape[0], 512), device="cuda")
+        return n(zz.scatter_add_(1, idx.long(), z_s))
+
+    assert_equivalent(x, W, codes(want[0], want[2]), codes(got[0], got[2]))
+
+
+def test_cgs2_solve_launches():
+    """A CUDA-tensor cgs2 solve at T=64: 64 K6a and 64 K6d launches, no
+    K6b, one K6c."""
+    _need_card()
+    x, W = omp_problem(2, 300, 128, 256)
+    before = _cuda.launch_counts()
+    idx, valid, z_s = T_O.fused_omp_solve(t(x).cuda(), t(W).cuda(), 64,
+                                          gs="cgs2")
+    torch.cuda.synchronize()
+    after = _cuda.launch_counts()
+    delta = {k: after[k] - before.get(k, 0) for k in after}
+    assert delta["omp_select_f32"] == 64 and delta["omp_orth_cgs2"] == 64
+    assert delta["omp_orth"] == 0 and delta["omp_backsub"] == 1
+    assert bool(valid.all()) and bool(torch.isfinite(z_s).all())

@@ -68,8 +68,9 @@ def test_failed_library_load_raises(monkeypatch):
     kernels = [*fused.FISTA_RESID.values(), *fused.FISTA_GRAD_PROX.values(),
                *cd.CD_STEPS.values(), cd.CD_MOD_SWEEP,
                *group.GROUP_PROX.values(), *omp.OMP_SELECT.values(),
-               omp.OMP_ORTH, omp.OMP_BACKSUB, chol.CHOL_APPEND_SOLVE,
-               chol.CHOL_SOLVE, *conv.CONV_DECODE_RESID.values(),
+               *omp.OMP_ORTH.values(), omp.OMP_BACKSUB,
+               chol.CHOL_APPEND_SOLVE, chol.CHOL_SOLVE,
+               *conv.CONV_DECODE_RESID.values(),
                *conv.CONV_ADJOINT_PROX.values()]
     for k in kernels:
         monkeypatch.setattr(k, "_fn", None)
