@@ -1,7 +1,8 @@
 // A 128 x 128 block tile of a product A B^T on Hopper's tensor cores
 // (warpgroup MMA, wgmma), with f32 A rounded or split to bf16 on its way
-// into shared memory. Used by csrc/omp.cu (K6a omp_select); written so
-// that a kernel with another epilogue can take it up.
+// into shared memory. Used whole by csrc/omp.cu (K6a omp_select) and
+// csrc/fista.cu (K2 fista_grad_prox, and K1 fista_resid reading y's
+// split); K1 forming y itself takes the primitives and the register-A MMA.
 //
 // The tile: rows row0 .. row0+127 of A [M, Kd] against rows col0 ..
 // col0+127 of B [Nb, Kd], contracting over Kd in stages of 64 (one 128-byte
@@ -108,6 +109,15 @@ __device__ __forceinline__ void cp_async16_fill(uint32_t dst, const void* src,
                : "memory");
 }
 
+// as cp_async16_fill for one 4-byte element (`bytes` 4 or 0), for rows
+// that are not 16-byte aligned
+__device__ __forceinline__ void cp_async4_fill(uint32_t dst, const void* src,
+                                               int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 // one arrival on `bar` once every cp.async this thread issued so far has
 // landed (.noinc: the arrival counts against the barrier's init count)
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
@@ -185,6 +195,50 @@ __device__ __forceinline__ void mma_64x128x16(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d += A B^T over one 16-deep slice with A from registers: a is this
+// thread's fragment of the 64 x 16 bf16 tile, warp w of the warpgroup
+// holding rows 16 w .. 16 w + 15 as four bf16 pairs (the first element in
+// the low half): a[0] row lane / 4, columns 2 (lane % 4) + {0, 1}; a[1]
+// row lane / 4 + 8, the same columns; a[2], a[3] those rows at columns
+// 8 + 2 (lane % 4) + {0, 1}. B is a 128 x 16 K-major tile given by its
+// descriptor. The registers of a must not change until the MMA completes.
+__device__ __forceinline__ void mma_64x128x16_rs(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void mma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -199,7 +253,8 @@ __device__ __forceinline__ void mma_wait() {
 // The producer warpgroup (pt = its thread, 0..127): fills the ring with
 // Kd / 64 stages, 8 16-byte copies of each operand tile a thread. full[s]
 // expects one arrival of each producer thread, empty[s] one of each
-// consumer thread.
+// consumer thread. Kd is also both operands' row stride; B must hold the
+// whole tile's rows (the callers pad it to a multiple of 128 rows).
 template <bool SPLIT>
 __device__ __forceinline__ void produce(const __nv_bfloat16* __restrict__ a_hi,
                                         const __nv_bfloat16* __restrict__ a_lo,

@@ -34,9 +34,10 @@ other device raises.
 
 ``kernel_precision``:
 
-* ``'f32'``: FP32 products and FP32 group sums of squares. The TPU kernel
-  splits v^2 and the group scale into bf16 hi + lo (about 2^-17
-  relative); the port keeps them in f32.
+* ``'f32'``: the products of :mod:`lasso_tpu_torch.ops.fused_ista` (the
+  TPU kernel's bf16x3 split) and FP32 group sums of squares. The TPU
+  kernel also splits v^2 and the group scale into bf16 hi + lo (about
+  2^-17 relative); the port keeps those in f32.
 * ``'bf16'``: bf16 operands of the products (as in
   :mod:`lasso_tpu_torch.ops.fused_ista`), each v^2 rounded to bf16 before
   the f32 group sum, and the group scale rounded to bf16 before it
@@ -52,7 +53,8 @@ import numpy as np
 import torch
 
 from lasso_tpu_torch.ops import _cuda
-from lasso_tpu_torch.ops.fused_ista import (_grad_prox_plain_into,
+from lasso_tpu_torch.ops.fused_ista import (_call_operands,
+                                            _grad_prox_plain_into,
                                             _resid_plain_into, _restart_coef,
                                             _scalar_table, fista_grad_prox,
                                             fista_resid)
@@ -236,14 +238,17 @@ def _run_group_steps(resid_fn, grad_fn, prox_fn, x, z, z_prev, weight, lr,
     # slower (PERF.md, PR 4)
     bufs = tuple(torch.empty_like(z) for _ in range(3))
     v = torch.empty_like(z)
+    ops = (_call_operands(x, weight, kernel_precision)
+           if resid_fn is fista_resid else None)
     r = None
     cur, prev = z, z_prev
     delta = None
     for s in range(steps):
         r = resid_fn(x, cur, prev, weight, scal[s], t, kernel_precision,
-                     out=r)
+                     out=r, operands=ops)
         grad_fn(r, cur, prev, weight, scal[s], None, t, False,
-                kernel_precision, out=v, with_delta=False, advance_t=False)
+                kernel_precision, out=v, with_delta=False, advance_t=False,
+                operands=ops)
         z_new, delta = prox_fn(v, cur, prev, t, thg, tables,
                                kernel_precision, out=bufs[s % 3],
                                with_delta=s == steps - 1)

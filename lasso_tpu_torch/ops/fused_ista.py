@@ -9,13 +9,19 @@ batched lasso (x: [N, D], z: [N, K], dictionary W: [D, K]):
     z_next = prox(y - lr * grad, th) * 1/(1 + l2 * lr)
     delta  = sum |z_next - z|                (convergence statistic)
 
-On a CUDA tensor each step is two kernels of ``csrc/fista.cu``:
-:func:`fista_resid` (K1: the momentum point and the residual) and
+On a CUDA tensor each step is two kernels of ``csrc/fista.cu``, both on
+the tensor cores (warpgroup MMA): :func:`fista_resid` (K1: the momentum
+point and the residual, with the residual's bf16 split beside it) and
 :func:`fista_grad_prox` (K2: the gradient with the prox, delta and the
 restart test in its epilogue). :func:`fused_fista_step` and
 :func:`fused_fista_multistep` issue them, one pair per sub-step, on the
 current stream; a multistep call reads each sub-step's scalars from a
-device ``[S, 4]`` table by index, with no host sync between sub-steps.
+device ``[S, 4]`` table by index, with no host sync between sub-steps. The
+kernels' bf16 operands (:class:`FistaOperands`: W's split in both layouts
+and a buffer for the residual's split) are made once a call. Within a
+multistep call with a scalar momentum, each K2 also writes the next
+sub-step's momentum point as its bf16 split, and the next K1 reads it in
+place of forming y from z and z_prev (the same values).
 
 On a CPU tensor the same functions run the plain PyTorch versions
 (:func:`fista_resid_plain`, :func:`fista_grad_prox_plain`), which repeat
@@ -25,9 +31,13 @@ tensor on any other device raises.
 
 ``kernel_precision``:
 
-* ``'f32'``: FP32 products (FMA in the kernels, TF32 off in the plain
-  version). The JAX package's TPU kernel emulates f32 with a bf16x3
-  split; the port's f32 is at least as accurate.
+* ``'f32'``: the TPU kernel's bf16x3 split. Each operand ``v`` of a
+  product is split into ``hi = bf16(v)`` and ``lo = bf16(v - hi)``, and
+  the product is ``hi @ hi + lo @ hi + hi @ lo`` with FP32 sums (the
+  dropped ``lo @ lo`` is about 2^-16 relative): three bf16 MMAs into one
+  FP32 accumulator in the kernels, three FP32 products of bf16-grid
+  values with TF32 off in the plain versions, which sum them in another
+  order.
 * ``'bf16'``: both operands of each product rounded to bf16, FP32
   accumulation: the semantics of the TPU kernel's native bf16 passes.
 """
@@ -35,18 +45,19 @@ tensor on any other device raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from lasso_tpu_torch.config import require_fp32_matmul
 from lasso_tpu_torch.ops import _cuda
 from lasso_tpu_torch.ops.precision import (check_kernel_precision,
-                                           round_bf16)
+                                           round_bf16, split_bf16)
 from lasso_tpu_torch.ops.shrink import soft_threshold, soft_threshold_nonneg
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_RESID_ARGS = [_P] * 7 + [_I] * 3 + [_P]
-_GRAD_PROX_ARGS = [_P] * 11 + [_I] * 4 + [_P]
+_RESID_ARGS = [_P] * 9 + [_I] * 3 + [_P]
+_GRAD_PROX_ARGS = [_P] * 13 + [_I] * 4 + [_P]
 
 # the C entries of csrc/fista.cu, one per kernel and precision
 FISTA_RESID = {kp: _cuda.CudaKernel("fista", f"fista_resid_{kp}", _RESID_ARGS)
@@ -54,7 +65,8 @@ FISTA_RESID = {kp: _cuda.CudaKernel("fista", f"fista_resid_{kp}", _RESID_ARGS)
 FISTA_GRAD_PROX = {kp: _cuda.CudaKernel("fista", f"fista_grad_prox_{kp}",
                                         _GRAD_PROX_ARGS)
                    for kp in ("f32", "bf16")}
-_ROW_TILE = 128   # BM of csrc/fista.cu: rows per block
+_TILE = 128   # rows and columns of a block tile of csrc/fista.cu
+_DEPTH = 64   # depth of a stage of its products
 
 
 def supports_fused_step(x, z0, weight):
@@ -92,23 +104,107 @@ def _restart_coef(t):
     return (t - 1.0) / t_next, t_next
 
 
-def _matmul_f32(a, b):
+def _up(v, m):
+    return -(-v // m) * m
+
+
+def _bf16_parts(a, kernel_precision):
+    """``[P, ...]`` bfloat16: the split ``(hi, lo)`` of f32 ``a`` for
+    ``'f32'`` (P = 2), or ``bf16(a)`` for ``'bf16'`` (P = 1)."""
+    parts = (split_bf16(a) if kernel_precision == "f32"
+             else (round_bf16(a),))
+    return torch.stack(parts).to(torch.bfloat16)
+
+
+class FistaOperands(NamedTuple):
+    """The kernels' bf16 operands for one dictionary and batch size, made
+    by :func:`fista_operands` once a call. P is 2 (hi, lo) for ``'f32'``,
+    1 for ``'bf16'``; X128 is X rounded up to a multiple of 128.
+
+    ``w`` ``[P, D128, K64]``: W's split, K1's B operand (contiguous along
+    K). ``wt`` ``[P, K128, D64]``: W^T's split, K2's B operand (contiguous
+    along D). ``rb`` ``[P, N, D64]``: the residual's split, zero past D,
+    which K1 writes beside the residual and K2 reads, so a
+    :func:`fista_grad_prox` given these operands reads ``rb`` as the split
+    of its ``resid``. ``ys`` ``[P, N, K64]`` (zero past K) or None: the
+    next momentum point's split, which K2 writes when given the next
+    step's scalars and K1 reads in place of forming y from z and z_prev
+    (the sub-steps of a multistep call with a scalar momentum).
+    """
+    w: torch.Tensor
+    wt: torch.Tensor
+    rb: torch.Tensor
+    ys: Optional[torch.Tensor] = None
+
+
+def fista_operands(weight, n, kernel_precision="f32", with_y=False):
+    """The :class:`FistaOperands` of ``weight`` [D, K] for batches of
+    ``n`` rows: W split once, as the TPU wrapper splits it outside its
+    kernel (fused_ista.py:210, :412), zero-padded to whole tiles; with
+    ``with_y`` also the zeroed ``ys``."""
+    check_kernel_precision(kernel_precision)
+    D, K = weight.shape
+    parts = _bf16_parts(weight, kernel_precision)
+    pad = torch.nn.functional.pad
+    w = pad(parts, (0, _up(K, _DEPTH) - K, 0, _up(D, _TILE) - D))
+    wt = pad(parts.transpose(1, 2),
+             (0, _up(D, _DEPTH) - D, 0, _up(K, _TILE) - K))
+    P, dev = parts.shape[0], weight.device
+    rb = torch.empty((P, n, _up(D, _DEPTH)), dtype=torch.bfloat16,
+                     device=dev)
+    ys = (torch.zeros((P, n, _up(K, _DEPTH)), dtype=torch.bfloat16,
+                      device=dev) if with_y else None)
+    return FistaOperands(w.contiguous(), wt.contiguous(), rb, ys)
+
+
+def _fill_resid_split(ops, resid, kernel_precision):
+    """Write ``resid``'s split into ``ops.rb`` (what K1 writes beside the
+    residual), for a K2 call given the residual alone."""
+    D = resid.shape[1]
+    ops.rb[:, :, :D].copy_(_bf16_parts(resid, kernel_precision))
+    ops.rb[:, :, D:].zero_()
+
+
+def _check_operands(ops, N, D, K, kernel_precision):
+    P = 2 if kernel_precision == "f32" else 1
+    _cuda.check_cuda(bfloat16=("w", "wt", "rb", "ys"), w=ops.w, wt=ops.wt,
+                     rb=ops.rb, ys=ops.ys)
+    _cuda.check_shapes({
+        "operands.w": (ops.w, (P, _up(D, _TILE), _up(K, _DEPTH))),
+        "operands.wt": (ops.wt, (P, _up(K, _TILE), _up(D, _DEPTH))),
+        "operands.rb": (ops.rb, (P, N, _up(D, _DEPTH))),
+        "operands.ys": (ops.ys, (P, N, _up(K, _DEPTH)))})
+
+
+def _y_split(ops, wanted, what):
+    """``ops.ys`` when ``wanted``, else None; wanted without it raises."""
+    if not wanted:
+        return None
+    if ops is None or ops.ys is None:
+        raise ValueError(f"{what} needs operands made with with_y=True")
+    return ops.ys
+
+
+def _product(a, b, kernel_precision):
+    """``a @ b`` as the kernels compute it: bf16 operands with FP32 sums,
+    in ``'f32'`` the bf16x3 split ``hi @ hi + lo @ hi + hi @ lo``."""
     if a.is_cuda:
         require_fp32_matmul()
-    return a @ b
+    if kernel_precision == "bf16":
+        return round_bf16(a) @ round_bf16(b)
+    a_hi, a_lo = split_bf16(a)
+    b_hi, b_lo = split_bf16(b)
+    return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo
 
 
 def fista_resid_plain(x, z, z_prev, weight, scal, t_vec=None,
                       kernel_precision="f32"):
     """Plain version of K1: ``(z + c (z - z_prev)) W^T - x`` with ``c``
     the momentum ``scal[2]``, or the per-row restart coefficient of
-    ``t_vec``."""
+    ``t_vec``, the product as :func:`_product` computes it."""
     c = scal[2] if t_vec is None else _restart_coef(t_vec)[0]
     y = z + c * (z - z_prev)
-    w = weight
-    if kernel_precision == "bf16":
-        y, w = round_bf16(y), round_bf16(w)
-    return _matmul_f32(y, w.T) - x
+    return _product(y, weight.T, kernel_precision) - x
 
 
 def fista_grad_prox_plain(resid, z, z_prev, weight, scal, trow=None,
@@ -119,10 +215,7 @@ def fista_grad_prox_plain(resid, z, z_prev, weight, scal, trow=None,
     c, t_next = ((scal[2], None) if t_vec is None
                  else _restart_coef(t_vec))
     y = z + c * (z - z_prev)
-    r, w = resid, weight
-    if kernel_precision == "bf16":
-        r, w = round_bf16(r), round_bf16(w)
-    grad = _matmul_f32(r, w)
+    grad = _product(resid, weight, kernel_precision)
     prox = soft_threshold_nonneg if nonneg else soft_threshold
     z_next = prox(y - lr * grad, th if trow is None else trow) * scale
     delta = torch.sum(torch.abs(z_next - z))
@@ -150,13 +243,20 @@ def _check_shapes(x, z, z_prev, weight, scal, t_vec=None, trow=None,
 
 
 def fista_resid(x, z, z_prev, weight, scal, t_vec=None,
-                kernel_precision="f32", out=None):
+                kernel_precision="f32", out=None, operands=None,
+                y_split=False):
     """K1: ``r = y W^T - x`` with ``y = z + c (z - z_prev)``.
 
     ``scal`` is one ``[4]`` row of the scalar table; ``c`` is ``scal[2]``,
     or the restart coefficient of the ``[N, 1]`` carry ``t_vec``. On a CPU
     tensor this runs :func:`fista_resid_plain`; otherwise it launches the
     kernel into ``out`` (or a new ``[N, D]`` tensor) or raises.
+    ``operands`` (:func:`fista_operands` of ``weight``, made here when
+    None) carries W's split, and the kernel writes r's split into its
+    ``rb`` for the :func:`fista_grad_prox` call given the same operands.
+    With ``y_split`` the kernel reads y's split from ``operands.ys``, as
+    the previous :func:`fista_grad_prox` given ``next_scal`` wrote it, in
+    place of forming y (the same values); the plain version forms y.
     """
     check_kernel_precision(kernel_precision)
     if x.device.type == "cpu":
@@ -172,16 +272,21 @@ def fista_resid(x, z, z_prev, weight, scal, t_vec=None,
     if tuple(out.shape) != (N, D):
         raise ValueError(f"out has shape {tuple(out.shape)}, expected "
                          f"{(N, D)}")
+    ops = (fista_operands(weight, N, kernel_precision) if operands is None
+           else operands)
+    _check_operands(ops, N, D, K, kernel_precision)
+    ys = _y_split(ops, y_split, "y_split")
     FISTA_RESID[kernel_precision](
-        x.data_ptr(), z.data_ptr(), z_prev.data_ptr(), weight.data_ptr(),
-        scal.data_ptr(), _cuda.ptr(t_vec), out.data_ptr(), N, D, K,
-        _cuda.stream())
+        x.data_ptr(), z.data_ptr(), z_prev.data_ptr(), ops.w.data_ptr(),
+        scal.data_ptr(), _cuda.ptr(t_vec), out.data_ptr(), ops.rb.data_ptr(),
+        _cuda.ptr(ys), N, D, K, _cuda.stream())
     return out
 
 
 def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
                     nonneg=False, kernel_precision="f32", out=None,
-                    with_delta=True, advance_t=True):
+                    with_delta=True, advance_t=True, operands=None,
+                    next_scal=None):
     """K2: ``z_next = prox(y - lr (resid W), th) * scale``.
 
     ``trow`` is a ``[1, K]`` threshold row (already times lr) in place of
@@ -193,7 +298,13 @@ def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
     ``(z_next, delta)``, ``delta = sum|z_next - z|`` as a 0-d tensor (None
     when ``with_delta`` is False). On a CPU tensor this runs
     :func:`fista_grad_prox_plain`; otherwise it launches the kernel or
-    raises.
+    raises. The kernel reads ``resid``'s split from ``operands.rb``, as
+    :func:`fista_resid` given the same ``operands`` wrote it; without
+    ``operands`` they are made here and the split is taken from
+    ``resid``. Given the next step's ``[4]`` scalar row ``next_scal`` (a
+    scalar momentum: no ``t_vec``), the kernel also writes the next
+    momentum point ``z_next + next_scal[2] (z_next - z)``'s split into
+    ``operands.ys`` for the next :func:`fista_resid` with ``y_split``.
     """
     check_kernel_precision(kernel_precision)
     if resid.device.type == "cpu":
@@ -205,29 +316,43 @@ def fista_grad_prox(resid, z, z_prev, weight, scal, trow=None, t_vec=None,
     dev = resid.device
     if out is None:
         out = torch.empty((N, K), dtype=torch.float32, device=dev)
+    _cuda.check_cuda(resid=resid, z=z, z_prev=z_prev, weight=weight,
+                     scal=scal, trow=trow, t_vec=t_vec, out=out)
+    _check_shapes(resid, z, z_prev, weight, scal, t_vec, trow, out)
+    ops = operands
+    if ops is None:
+        ops = fista_operands(weight, N, kernel_precision)
+        _fill_resid_split(ops, resid, kernel_precision)
+    _check_operands(ops, N, D, K, kernel_precision)
+    ys = _y_split(ops, next_scal is not None, "next_scal")
+    if ys is not None:
+        if t_vec is not None:
+            raise ValueError("next_scal takes a scalar momentum, not t_vec")
+        _cuda.check_cuda(next_scal=next_scal, z=z)
+        _cuda.check_shapes({"next_scal": (next_scal, (4,))})
     delta = (torch.empty((1,), dtype=torch.float32, device=dev)
              if with_delta else None)
     rdot = counters = None
     if t_vec is not None and advance_t:
         rdot = torch.zeros((N,), dtype=torch.float32, device=dev)
-        counters = torch.zeros((-(-N // _ROW_TILE),), dtype=torch.int32,
+        counters = torch.zeros((-(-N // _TILE),), dtype=torch.int32,
                                device=dev)
-    _cuda.check_cuda(resid=resid, z=z, z_prev=z_prev, weight=weight,
-                     scal=scal, trow=trow, t_vec=t_vec, out=out)
-    _check_shapes(resid, z, z_prev, weight, scal, t_vec, trow, out)
     FISTA_GRAD_PROX[kernel_precision](
-        resid.data_ptr(), z.data_ptr(), z_prev.data_ptr(), weight.data_ptr(),
+        ops.rb.data_ptr(), z.data_ptr(), z_prev.data_ptr(), ops.wt.data_ptr(),
         scal.data_ptr(), _cuda.ptr(trow), _cuda.ptr(t_vec), _cuda.ptr(rdot),
-        _cuda.ptr(counters), out.data_ptr(), _cuda.ptr(delta), N, D, K,
-        int(nonneg), _cuda.stream())
+        _cuda.ptr(counters), out.data_ptr(), _cuda.ptr(delta),
+        _cuda.ptr(next_scal), _cuda.ptr(ys), N, D, K, int(nonneg),
+        _cuda.stream())
     return out, (None if delta is None else delta.reshape(()))
 
 
 def _grad_prox_plain_into(resid, z, z_prev, weight, scal, trow=None,
                           t_vec=None, nonneg=False, kernel_precision="f32",
-                          out=None, with_delta=True, advance_t=True):
+                          out=None, with_delta=True, advance_t=True,
+                          operands=None, next_scal=None):
     """:func:`fista_grad_prox_plain` with the calling convention of
-    :func:`fista_grad_prox` (``t_vec`` advanced in place, ``out``)."""
+    :func:`fista_grad_prox` (``t_vec`` advanced in place, ``out``;
+    ``operands`` and ``next_scal`` are the kernels' and not read)."""
     z_next, delta, t_new = fista_grad_prox_plain(
         resid, z, z_prev, weight, scal, trow, t_vec, nonneg,
         kernel_precision)
@@ -239,9 +364,18 @@ def _grad_prox_plain_into(resid, z, z_prev, weight, scal, trow=None,
 
 
 def _resid_plain_into(x, z, z_prev, weight, scal, t_vec=None,
-                      kernel_precision="f32", out=None):
+                      kernel_precision="f32", out=None, operands=None,
+                      y_split=False):
     return fista_resid_plain(x, z, z_prev, weight, scal, t_vec,
                              kernel_precision)
+
+
+def _call_operands(x, weight, kernel_precision, with_y=False):
+    """The :class:`FistaOperands` a call on the card makes once for all
+    its sub-steps; None on the CPU, where the plain versions need none."""
+    if x.device.type != "cuda":
+        return None
+    return fista_operands(weight, x.shape[0], kernel_precision, with_y)
 
 
 def _step_operands(x, weight, lr, alpha, mom, l2):
@@ -273,15 +407,21 @@ def _run_steps(resid_fn, grad_prox_fn, x, z, z_prev, weight, lrs, threshs,
          t_vec.to(torch.float32, memory_format=torch.contiguous_format,
                   copy=True))
     bufs = (torch.empty_like(z), torch.empty_like(z))
+    # with a scalar momentum each K2 forms the next sub-step's y for K1
+    chain = t is None and steps > 1
+    ops = (_call_operands(x, weight, kernel_precision, with_y=chain)
+           if resid_fn is fista_resid else None)
     r = None
     cur, prev = z, z_prev
     delta = None
     for s in range(steps):
         r = resid_fn(x, cur, prev, weight, scal[s], t, kernel_precision,
-                     out=r)
+                     out=r, operands=ops, y_split=chain and s > 0)
         z_new, delta = grad_prox_fn(
             r, cur, prev, weight, scal[s], trow, t, nonneg,
-            kernel_precision, out=bufs[s % 2], with_delta=s == steps - 1)
+            kernel_precision, out=bufs[s % 2], with_delta=s == steps - 1,
+            operands=ops,
+            next_scal=scal[s + 1] if chain and s + 1 < steps else None)
         cur, prev = z_new, cur
     if t_vec is not None:
         return cur, prev, t, delta
@@ -305,10 +445,12 @@ def fused_fista_step(x, z, z_prev, weight, lr, alpha, mom,
     scal, trow = _step_operands(x, weight, lr, alpha, mom, l2)
     if x.is_cuda:
         _cuda.WRAPPER_CALLS["fused_fista_step"] += 1
+    ops = _call_operands(x, weight, kernel_precision)
     r = fista_resid(x, z, z_prev, weight, scal[0],
-                    kernel_precision=kernel_precision)
+                    kernel_precision=kernel_precision, operands=ops)
     return fista_grad_prox(r, z, z_prev, weight, scal[0], trow=trow,
-                           nonneg=nonneg, kernel_precision=kernel_precision)
+                           nonneg=nonneg, kernel_precision=kernel_precision,
+                           operands=ops)
 
 
 def fused_fista_step_plain(x, z, z_prev, weight, lr, alpha, mom,

@@ -4,8 +4,9 @@ fused group-FISTA kernel (interpret mode) on the same numpy inputs.
 The port runs on the CPU, where the wrappers take the kernels' plain
 versions. Tolerances: the group shrink atol 1e-6 (tests/
 test_group_lasso.py:54-77); a fused 8-step call in f32 atol 1e-4 on the
-codes (the JAX kernel's f32 is a bf16x3 split, the port's true f32;
-test_group_lasso.py:282-286) and delta rtol 1e-4; in bf16 the objective
+codes (both packages' products are the bf16x3 split; the JAX kernel also
+splits its group sums, the port's are f32; test_group_lasso.py:282-286)
+and delta rtol 1e-4; in bf16 the objective
 of the codes rtol 1e-4 (the two round bf16 at the same places but sum in
 other orders, and single coordinates may part).
 """

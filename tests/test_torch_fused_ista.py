@@ -3,9 +3,10 @@ against the interpret-mode Pallas kernels of lasso_tpu (the CUDA kernels
 themselves are held against the plain versions in test_torch_gpu.py).
 
 Tolerances are those of tests/test_fused_ista.py: z atol 1e-5 (f32) /
-5e-3 (bf16) per step, delta rtol 1e-5 / 5e-2. The port's f32 is a true
-f32 product where the TPU kernel uses a bf16x3 split, which is what the
-f32 tolerance absorbs; in bf16 both round the same operands.
+5e-3 (bf16) per step, delta rtol 1e-5 / 5e-2. In f32 both packages run the
+TPU kernel's bf16x3 split (hi*hi + lo*hi + hi*lo, FP32 sums) and sum its
+three products in another order, which is what the f32 tolerance absorbs;
+in bf16 both round the same operands.
 """
 
 import numpy as np
