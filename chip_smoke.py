@@ -11,8 +11,9 @@ before the last line is printed.
 
 0. The card's name and power limit, the build time of the kernels, and
    the HGMMA (warpgroup MMA) instructions in their SASS: in both K6a
-   kernels and in all four K1/K2 kernels, and in no other kernel of
-   ``omp`` or ``fista``.
+   kernels, in all four K1/K2 kernels and in every instantiation of the
+   four K9a/K9b kernels (``conv``), and in no other kernel of ``omp`` or
+   ``fista``.
 1. Each CUDA kernel against its plain PyTorch version on the card:
    ``fused_fista_step`` and ``fused_fista_multistep`` (S=4) in f32 and
    bf16, plain and with restart (multistep), a per-feature threshold row,
@@ -173,17 +174,22 @@ before the last line is printed.
    1x32x32, 64 atoms 7x7) and rich (64 images 16x32x32, 256 atoms 5x5)
    shapes. Tolerances: f32 codes atol 3e-5 * max(1, |z|max) (JAX's),
    delta 1e-5 relative; bf16 codes 1e-3 * scale, delta 1e-4; the restart
-   t equal. Then each kernel alone at the headline and rich shapes, timed
-   behind ``hold_the_card``'s queued work, beside its bound, its plain
-   version and cuDNN (``conv_transpose2d`` for K9a, ``conv2d`` for K9b,
-   TF32 off; in bf16 on bf16 tensors), both as CUDA-graph replays.
+   t equal. Then each kernel alone at the headline and rich shapes, given
+   W's parts made once (``conv_operands``, as a call's sub-steps run
+   them), timed behind ``hold_the_card``'s queued work, beside its bound
+   (in 'f32' three bf16 products on the tensor cores), its plain version
+   and cuDNN (``conv_transpose2d`` for K9a, ``conv2d`` for K9b, TF32 off;
+   in bf16 on bf16 tensors), both as CUDA-graph replays; the rich rows are
+   printed beside the headline rows.
 15. Conv sparse coding through ``ista_conv2d`` at
    ``benchmarks/conv_fused_bench.py``'s widths (alpha 0.1, lr = 1 / the
    Araujo bound, 200 iterations, tol 0): the headline in 'f32', 'bf16',
    'mixed' and f32 with restart (the main run of this slice, counts read
    around it: 200 K9a and 200 K9b launches a solve), iterations/s as the
-   minimum over three inputs; the fused f32 f64 objective within 1e-5
-   relative of the unfused route (cuDNN, TF32 off); gap_vs_f32_pct of
+   minimum over three inputs; the kernel / host split of an f32 and a
+   bf16 solve (torch.profiler's kernel time against the wall time); the
+   fused f32 f64 objective within 1e-5 relative of the unfused route
+   (cuDNN, TF32 off); gap_vs_f32_pct of
    'mixed' and 'bf16' against a 1600-iteration f32 anchor; tol runs
    (1e-5, and 1e-4 where both routes stop early) whose fused n_iter lies
    on a block boundary at or above the unfused one; the rich width in f32
@@ -2088,15 +2094,17 @@ def conv_step_size(W, imsize, pad):
 def conv_bound_ms(n, cz, cx, hz, wz, kh, kw, pad, kp):
     """The bounds of K9a and K9b in ms: (bytes term, operations term)
     each. Operations: 2 per multiply-add of the taps that land inside the
-    image (the same pairs for the conv and its adjoint); bytes: K9a reads
-    z, z_prev and x and writes r, K9b reads r, z and z_prev and writes
-    z+."""
+    image (the same pairs for the conv and its adjoint), on the tensor
+    cores at the bf16 rate, three times over in 'f32' (its bf16x3 split,
+    the least time for this f32-grade work); bytes: K9a reads z, z_prev
+    and x and writes r, K9b reads r, z and z_prev and writes z+."""
     H, W_ = hz + kh - 1 - 2 * pad, wz + kw - 1 - 2 * pad
     rows = sum(1 for i in range(H) for a in range(hz)
                if 0 <= i + pad - a < kh)
     cols = sum(1 for j in range(W_) for b in range(wz)
                if 0 <= j + pad - b < kw)
-    t_ops = 2 * n * cz * cx * rows * cols / PEAK_FLOPS[kp] * 1e3
+    t_ops = (2 * n * cz * cx * rows * cols * (3 if kp == "f32" else 1)
+             / PEAK_FLOPS["bf16"] * 1e3)
     zb, xb = 4 * n * cz * hz * wz, 4 * n * cx * H * W_
     return ((2 * zb + 2 * xb) / HBM_BYTES_PER_S * 1e3, t_ops), \
         ((xb + 3 * zb) / HBM_BYTES_PER_S * 1e3, t_ops)
@@ -2162,7 +2170,9 @@ def phase_conv_kernels():
         scratch = FC.adjoint_scratch(n, cz, hz, hz, DEV)
         bounds = conv_bound_ms(n, cz, cx, hz, hz, k, k, 0, "f32")
         for kp in ("f32", "bf16"):
-            r = FC.conv_decode_resid(x, z, zp, W, scal, kernel_precision=kp)
+            ops = FC.conv_operands(W, kp)   # W's parts, once a call
+            r = FC.conv_decode_resid(x, z, zp, W, scal, kernel_precision=kp,
+                                     operands=ops)
             torch.cuda.synchronize()
             e_a = float((r - FC.conv_decode_resid_plain(
                 x, z, zp, W, scal, kernel_precision=kp)).abs().max())
@@ -2180,14 +2190,15 @@ def phase_conv_kernels():
             for name, err, (t_bytes, t_ops), kern, plain, library in (
                     (f"conv_decode_resid_{kp}", e_a, bnd[0],
                      lambda: FC.conv_decode_resid(
-                         x, z, zp, W, scal, kernel_precision=kp, out=r_out),
+                         x, z, zp, W, scal, kernel_precision=kp, out=r_out,
+                         operands=ops),
                      lambda: FC.conv_decode_resid_plain(
                          x, z, zp, W, scal, kernel_precision=kp),
                      lambda: NF.conv_transpose2d(zl, Wl)),
                     (f"conv_adjoint_prox_{kp}", e_b, bnd[1],
                      lambda: FC.conv_adjoint_prox(
                          r, z, zp, W, scal, kernel_precision=kp, out=z_out,
-                         scratch=scratch),
+                         scratch=scratch, operands=ops),
                      lambda: FC.conv_adjoint_prox_plain(
                          r, z, zp, W, scal, kernel_precision=kp),
                      lambda: NF.conv2d(rl, Wl))):
@@ -2270,7 +2281,7 @@ def phase_conv_slice():
         timed_conv(xs[0], z0, W, lr, **base, **kw)
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
-    f64, codes = {}, {}
+    f64, codes, walls = {}, {}, {}
     for label, kw in variants.items():
         times = []
         for x in xs[1:]:
@@ -2279,7 +2290,7 @@ def phase_conv_slice():
                   f"conv {label}: n_iter {k}, {na} K9a and {nb} K9b "
                   f"launches (want {CONV_ITERS} each)")
             times.append(seconds)
-        codes[label] = z
+        codes[label], walls[label] = z, min(times)
         f64[label] = conv_objective64(xs[-1], W, z)
         check(bool(torch.isfinite(z).all()) and tuple(z.shape) == tuple(
             z0.shape), f"conv {label}: codes finite, of the codes' shape")
@@ -2290,6 +2301,18 @@ def phase_conv_slice():
               f"{float((z == 0).float().mean()):.4f}")
     counts = _cuda.launch_counts()
     print("[15] conv headline launch counts:", json.dumps(counts))
+    # the kernel / host split of a solve: the card's kernel time of one
+    # (torch.profiler) against its wall time above
+    for label in ("f32", "bf16"):
+        by_name = kernel_ms_by_name(
+            lambda: timed_conv(xs[-1], z0, W, lr, **base, **variants[label]))
+        conv_ms = sum(v for k, v in by_name.items() if "conv_" in k)
+        busy = sum(by_name.values())
+        wall = 1e3 * walls[label]
+        print(f"[15] conv headline {label} split: {wall:.3f} ms a solve, "
+              f"kernels {busy:.3f} ms ({100 * busy / wall:.1f}%; K9a + K9b "
+              f"{conv_ms:.3f} ms), the rest host or idle "
+              f"{wall - busy:.3f} ms")
 
     x = xs[-1]
     z_u, k_u, s_u, launched = timed_conv(x, z0, W, lr, use_pallas=False,
@@ -2400,21 +2423,28 @@ def main():
         if "registers" in line or "spill" in line or "wgmma" in line:
             print(f"[0] ptxas: {line.strip()}")
     # K6a, K1 and K2 run on the tensor cores (warpgroup MMA, HGMMA in
-    # SASS) in both precisions; no other omp or fista kernel does
+    # SASS) in both precisions; no other omp or fista kernel does. K9a and
+    # K9b do in both precisions and in every n width they are built for:
+    # no conv kernel without HGMMA is left
     omp_mma, fista_mma = sass_mma_counts("omp"), sass_mma_counts("fista")
+    conv_mma = sass_mma_counts("conv")
     mma = {f"{name}_{kp}": sum(v for k, v in counts.items()
                                if f"{name}_kernelILb{int(kp == 'f32')}" in k)
            for counts, names in ((omp_mma, ("omp_select",)),
                                  (fista_mma, ("fista_resid",
-                                              "fista_grad_prox")))
+                                              "fista_grad_prox")),
+                                 (conv_mma, ("conv_decode_resid",
+                                             "conv_adjoint_prox")))
            for name in names for kp in ("f32", "bf16")}
+    total = (sum(omp_mma.values()) + sum(fista_mma.values())
+             + sum(conv_mma.values()))
     print(f"[0] HGMMA in the SASS: {json.dumps(mma)}, in the other omp and "
-          f"fista kernels "
-          f"{sum(omp_mma.values()) + sum(fista_mma.values()) - sum(mma.values())}")
-    check(min(mma.values()) > 0
-          and sum(omp_mma.values()) + sum(fista_mma.values())
-          == sum(mma.values()),
-          "HGMMA in K6a and in all four K1/K2 kernels, in no other kernel")
+          f"fista kernels {total - sum(mma.values())}; conv kernels without "
+          f"HGMMA {sorted(k for k, v in conv_mma.items() if v == 0)}")
+    check(min(mma.values()) > 0 and total == sum(mma.values())
+          and min(conv_mma.values()) > 0,
+          "HGMMA in K6a, in all four K1/K2 kernels and in every K9a/K9b "
+          "kernel, in no other kernel")
 
     phase_kernel_cases()
     rows = phase_kernel_timing()

@@ -25,6 +25,10 @@
 // descriptors name (layout type 1, 8-row groups 1024 bytes apart).
 // Consumers release a stage through its "empty" mbarrier once the MMAs
 // that read it have completed.
+//
+// csrc/conv.cu takes the primitives alone: mma_ss<N> for the n widths of
+// its tiles (16, 64, 80, 128) and desc_plain for operands laid out
+// without swizzle.
 
 #pragma once
 
@@ -130,6 +134,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// close this thread's group of cp.async copies issued since the last
+// commit; wait until at most N of its groups are in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // order this thread's generic-proxy shared-memory accesses with the async
 // proxy, through which wgmma reads its operands
 __device__ __forceinline__ void fence_proxy_async() {
@@ -150,49 +164,97 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// the MMA descriptor of a K-major operand laid out without swizzle: 8 x
+// 16-byte core matrices (8 rows of 8 bf16, 128 contiguous bytes), the two
+// of a 16-deep slice `lbo` bytes apart, 8-row groups `sbo` bytes apart
+__device__ __forceinline__ uint64_t desc_plain(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous MMAs' fences
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The accumulator operands of an m64nNk16 MMA: N / 2 FP32 registers a
+// thread, as asm operands %0 .. %(N/2 - 1) (REGS) and their constraints.
+#define WGP_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WGP_F8(i) WGP_F4(i), WGP_F4(i + 4)
+#define WGP_F32(i) WGP_F8(i), WGP_F8(i + 8), WGP_F8(i + 16), WGP_F8(i + 24)
+#define WGP_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WGP_REGS32                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                          \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                        \
+  " %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGP_REGS40                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                          \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                        \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                        \
+  " %32, %33, %34, %35, %36, %37, %38, %39}"
+#define WGP_REGS64                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                          \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                        \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                        \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                        \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                        \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                        \
+  " %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d += A B^T over one 16-deep slice, both operands in shared memory given
+// by their descriptors: A 64 x 16, B N x 16, K-major. IA, IB, IS are the
+// operand numbers of the two descriptors and the scale flag.
+#define WGP_MMA_SS(N, REGS, IA, IB, IS, ...)                             \
+  asm volatile(                                                          \
+      "{\n"                                                              \
+      ".reg .pred p;\n"                                                  \
+      "setp.ne.b32 p, %" #IS ", 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " REGS   \
+      ", %" #IA ", %" #IB ", p, 1, 1, 0, 0;\n"                           \
+      "}\n"                                                              \
+      : __VA_ARGS__                                                      \
+      : "l"(desc_a), "l"(desc_b), "r"(1))
+
+template <int N>
+__device__ void mma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void mma_ss<16>(float (&d)[8], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  WGP_MMA_SS(16, WGP_REGS8, 8, 9, 10, WGP_F8(0));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<64>(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  WGP_MMA_SS(64, WGP_REGS32, 32, 33, 34, WGP_F32(0));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<80>(float (&d)[40], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  WGP_MMA_SS(80, WGP_REGS40, 40, 41, 42, WGP_F32(0), WGP_F8(32));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<128>(float (&d)[64], uint64_t desc_a,
+                                            uint64_t desc_b) {
+  WGP_MMA_SS(128, WGP_REGS64, 64, 65, 66, WGP_F32(0), WGP_F32(32));
 }
 
 // d += A B^T over one 16-deep slice: A a 64 x 16 K-major bf16 tile, B a
 // 128 x 16 one, both given by their descriptors
 __device__ __forceinline__ void mma_64x128x16(float (&d)[64], uint64_t desc_a,
                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+  mma_ss<128>(d, desc_a, desc_b);
 }
 
 // d += A B^T over one 16-deep slice with A from registers: a is this

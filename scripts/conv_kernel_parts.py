@@ -7,16 +7,21 @@ the CUDA toolkit:
 
     python3 scripts/conv_kernel_parts.py
 
-It builds four copies of csrc/conv.cu into build/conv_parts/: the source as
-it is ("whole"), without the z / z_prev loads of K9b's epilogue
-("no_epilogue_loads"), with the staged patches filled with a constant
-instead of loaded ("no_staging") and without the convolution loops
-("no_convolution"). Each copy's K9a and K9b (f32) are timed at
-benchmarks/conv_fused_bench.py's two widths (256 images 1x32x32 with 64
-atoms 7x7, and 64 images 16x32x32 with 256 atoms 5x5) by CUDA events over
-20 launches behind about 20 ms of queued work, and the script prints one
-JSON line a width with the card's name and power limit. The cut copies
-compute wrong results; only their times mean anything.
+It builds copies of csrc/conv.cu into build/conv_parts/: the source as it
+is ("whole"), without the device-memory loads that form the staged patches
+(K9a's z and z_prev, K9b's r: "no_patch_loads"), without the cp.async
+copies of W's parts ("no_b_copies"), without the warpgroup MMAs
+("no_mma"), without the z / z_prev loads of K9b's epilogue
+("no_epilogue_loads"), without its z+ stores ("no_epilogue_stores"),
+without its delta and restart partials ("no_partials") and without K9a's
+fold ("no_fold"), and with all of these cut at once ("skeleton": the stage
+loop's copies and barriers). Each copy's K9a
+and K9b are timed in 'f32' and 'bf16' at benchmarks/conv_fused_bench.py's
+two widths (256 images 1x32x32 with 64 atoms 7x7, and 64 images 16x32x32
+with 256 atoms 5x5) by CUDA events over 20 launches behind about 20 ms of
+queued work, and the script prints one JSON line a width with the card's
+name and power limit. The cut copies compute wrong results; only their
+times mean anything.
 """
 
 import ctypes
@@ -34,16 +39,36 @@ from lasso_tpu_torch.ops import _cuda  # noqa: E402
 from lasso_tpu_torch.ops import fused_conv as FC  # noqa: E402
 
 CUTS = {
+    "no_patch_loads": [
+        ("zv[u][e] = ok ? zo[e * zplane] : 0.f;", "zv[u][e] = 1.f;"),
+        ("zpv[u][e] = ok ? zpo[e * zplane] : 0.f;", "zpv[u][e] = 1.f;"),
+        ("? __ldg(rrow + (size_t)cx * g.H * g.Wd + cc)", "? 1.f"),
+        ("? __ldg(rn + ((size_t)cx * g.H + rr) * g.Wd + cc)", "? 1.f")],
+    "no_b_copies": [
+        ("        wgp::cp_async16_fill(wgp::smem_addr(dst",
+         "        if (0) wgp::cp_async16_fill(wgp::smem_addr(dst")],
+    "no_mma": [
+        ("          wgp::mma_ss<NT>(acc[i], ah, bh);",
+         "          if (0) wgp::mma_ss<NT>(acc[i], ah, bh);"),
+        ("            wgp::mma_ss<NT>(acc[i], al, bh);\n"
+         "            wgp::mma_ss<NT>(acc[i], ah, bl);",
+         "            if (0) wgp::mma_ss<NT>(acc[i], al, bh);\n"
+         "            if (0) wgp::mma_ss<NT>(acc[i], ah, bl);")],
     "no_epilogue_loads": [
-        ("zv[u] = in ? z[off[u]] : 0.f;", "zv[u] = 0.f;"),
-        ("zpv[u] = in ? zp[off[u]] : 0.f;", "zpv[u] = 0.f;")],
-    "no_staging": [("? load(ch, a, b)\n", "? 1.f\n")],
-    "no_convolution": [
-        ("        row_taps<CXT, KW, true>(",
-         "        if (0) row_taps<CXT, KW, true>("),
-        ("        row_taps<CZT, KW, false>(",
-         "        if (0) row_taps<CZT, KW, false>(")],
+        ("zv[u] = in ? zs[o] : 0.f;", "zv[u] = 0.f;"),
+        ("zpv[u] = in ? zps[o] : 0.f;", "zpv[u] = 0.f;")],
+    "no_epilogue_stores": [("        zo[cz * (int)zplane + px] = zn;",
+                            "        if (zn == 1.2345f) zo[0] = zn;")],
+    "no_partials": [("  if (!restart && delta == nullptr) return;\n",
+                     "  return;\n")],
+    "no_fold": [("      for (int kj = kj0; kj < kj1; ++kj) {",
+                 "      for (int kj = kj0; kj < kj0; ++kj) {")],
 }
+# what is left when nothing but the stage loop's copies and barriers runs
+CUTS["skeleton"] = [c for name in ("no_patch_loads", "no_mma",
+                                   "no_epilogue_loads", "no_epilogue_stores",
+                                   "no_partials", "no_fold")
+                    for c in CUTS[name]]
 SHAPES = ((256, 64, 1, 26, 7), (64, 256, 16, 28, 5))   # N, Cz, Cx, Hz, k
 
 
@@ -114,26 +139,35 @@ def main():
         delta = torch.empty(1, device="cuda")
         times = {}
         for name, lib in libs.items():
-            fa, fb = lib.conv_decode_resid_f32, lib.conv_adjoint_prox_f32
-            fa.argtypes, fb.argtypes = FC._DECODE_ARGS, FC._ADJOINT_ARGS
-            fa.restype = fb.restype = ctypes.c_int
+            for kp in ("f32", "bf16"):
+                ops = FC.conv_operands(w, kp)
+                fa = getattr(lib, f"conv_decode_resid_{kp}")
+                fb = getattr(lib, f"conv_adjoint_prox_{kp}")
+                fa.argtypes, fb.argtypes = FC._DECODE_ARGS, FC._ADJOINT_ARGS
+                fa.restype = fb.restype = ctypes.c_int
 
-            def k9a():
-                return fa(x.data_ptr(), z.data_ptr(), zp.data_ptr(),
-                          w.data_ptr(), scal.data_ptr(), None, r.data_ptr(),
-                          n, cz, cx, hz, hz, k, k, 0, stream())
+                def k9a():
+                    return fa(x.data_ptr(), z.data_ptr(), zp.data_ptr(),
+                              ops.wa.data_ptr(), scal.data_ptr(), None,
+                              r.data_ptr(), n, cz, cx, hz, hz, k, k, 0,
+                              stream())
 
-            def k9b():
-                return fb(r.data_ptr(), z.data_ptr(), zp.data_ptr(),
-                          w.data_ptr(), scal.data_ptr(), None, None,
-                          rpart.data_ptr(), dpart.data_ptr(),
-                          counters.data_ptr(), out.data_ptr(),
-                          delta.data_ptr(), n, cz, cx, hz, hz, k, k, 0, 0,
-                          rpart.numel(), stream())
+                def k9b():
+                    return fb(r.data_ptr(), z.data_ptr(), zp.data_ptr(),
+                              ops.wb.data_ptr(), scal.data_ptr(), None, None,
+                              rpart.data_ptr(), dpart.data_ptr(),
+                              counters.data_ptr(), out.data_ptr(),
+                              delta.data_ptr(), n, cz, cx, hz, hz, k, k, 0,
+                              0, rpart.numel(), stream())
 
-            if k9a() != 0 or k9b() != 0:
-                raise RuntimeError(f"{name}: launch failed")
-            times[name] = {"k9a_ms": ms(k9a), "k9b_ms": ms(k9b)}
+                errs = (k9a(), k9b())
+                if any(errs):
+                    lib.conv_error_string.restype = ctypes.c_char_p
+                    raise RuntimeError(
+                        f"{name} {kp}: launch failed: " + ", ".join(
+                            lib.conv_error_string(e).decode() for e in errs))
+                times[f"{name} {kp}"] = {"k9a_ms": round(ms(k9a), 4),
+                                         "k9b_ms": round(ms(k9b), 4)}
         print(json.dumps({"card": card, "shape": {"N": n, "Cz": cz,
                                                   "Cx": cx, "Hz": hz,
                                                   "k": k},

@@ -88,6 +88,20 @@ def test_sparse_encode_dispatch_errors(rng):
         sparse_encode(*args, z0=torch.zeros((8, 255)))
 
 
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_wrong_shape_z0_is_refused(rng, package):
+    """A z0 of the wrong shape: JAX asserts, the port raises ValueError (a
+    difference kept on purpose: an assert vanishes under ``python -O``)."""
+    x, _, _, W = make_problem(rng, n=8, d=16, k=24)
+    if package == "jax":
+        with pytest.raises(AssertionError):
+            j_encode(jnp.asarray(x), jnp.asarray(W), 0.1,
+                     z0=jnp.zeros((8, 23)))
+    else:
+        with pytest.raises(ValueError, match="z0 has shape"):
+            sparse_encode(t(x), t(W), 0.1, z0=torch.zeros((8, 23)))
+
+
 @pytest.mark.parametrize("alpha", ["scalar", "per_sample"])
 def test_chunked_encode_matches_jax(rng, alpha):
     """37 rows in chunks of 16: the last chunk is ragged and zero-padded;

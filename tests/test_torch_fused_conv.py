@@ -4,8 +4,9 @@ kernel (interpret mode) on the same numpy inputs.
 The port runs on the CPU, where the wrappers take the kernels' plain
 versions; JAX's canvas-layout outputs are unpacked with
 ``lasso_tpu.ops.fused_conv.unpack_codes``. Tolerances (those of
-tests/test_fused_conv.py): f32 codes atol 3e-5 * max(1, |z|max) (the JAX
-kernel's f32 is a bf16x3 split, the port's true f32), delta 1e-3 relative;
+tests/test_fused_conv.py): f32 codes atol 3e-5 * max(1, |z|max) (both
+packages' 'f32' is a bf16x3 split, summed in other orders), delta 1e-3
+relative;
 bf16 atol 2e-5 against JAX's kernel and its emulated oracle (both round
 y, the residual and W to bf16 and sum in f32); restart codes atol 5e-5 *
 scale and the per-sample t rtol 1e-6. The Cx=32 7x7 shape crashes the
@@ -23,6 +24,7 @@ from lasso_tpu.conv2d.ops import conv2d as j_conv2d
 from lasso_tpu.conv2d.ops import conv_transpose2d as j_conv_t
 from lasso_tpu.ops import fused_conv as JC
 from lasso_tpu.ops.precision import round_bf16 as j_round
+from lasso_tpu.ops.precision import split_bf16_xla as j_split
 from lasso_tpu.ops.shrink import soft_threshold as j_soft
 from lasso_tpu.ops.shrink import soft_threshold_nonneg as j_soft_nonneg
 from lasso_tpu_torch.ops import _cuda
@@ -79,6 +81,16 @@ def _jax_kernel(x, W, z, zp, ths, moms, steps, pad, kp="f32", nonneg=False,
         return un(zf), un(zpen), n(t_new)[0, ::cells], float(delta)
     zf, zpen, delta = outs
     return un(zf), un(zpen), float(delta)
+
+
+def _j_split_conv(fn, a, w, **kw):
+    """``fn(a, w)`` as the port's 'f32' computes it, from JAX's own split
+    of both operands (``split_bf16_xla``): hi*hi + lo*hi + hi*lo."""
+    parts = [[p.astype(jnp.float32) for p in j_split(jnp.asarray(v))]
+             for v in (a, w)]
+    (a_hi, a_lo), (w_hi, w_lo) = parts
+    return (fn(a_hi, w_hi, **kw) + fn(a_lo, w_hi, **kw)
+            + fn(a_hi, w_lo, **kw))
 
 
 def _assert_codes(got, want, atol_rel=3e-5):
@@ -182,15 +194,16 @@ def test_restart_matches_jax_kernel(nonneg):
 def test_single_step_kernels_plain():
     """K9a's plain version is JAX's decoder residual at the momentum point,
     K9b's the prox of the adjoint step, with a per-channel threshold and
-    nonneg; delta and the restart carry follow the step."""
+    nonneg, the convolutions split as the port's 'f32' splits them (from
+    JAX's own split); delta and the restart carry follow the step."""
     x, W, z, zp, rng = _problem(21, 3, 8, 2, 7, 9, 4, 2, pad=1)
     scal = torch.tensor([LR, 0.1 * LR, 0.3, 1.0])
     y = jnp.asarray(z) + 0.3 * (jnp.asarray(z) - jnp.asarray(zp))
-    want_r = n(j_conv_t(y, jnp.asarray(W), padding=1) - jnp.asarray(x))
+    want_r = n(_j_split_conv(j_conv_t, y, W, padding=1) - jnp.asarray(x))
     r = TC.conv_decode_resid(t(x), t(z), t(zp), t(W), scal, padding=1)
     np.testing.assert_allclose(n(r), want_r, atol=1e-5)
     tcol = (rng.uniform(0.05, 0.3, (8,)) * LR).astype(np.float32)
-    g = j_conv2d(jnp.asarray(want_r), jnp.asarray(W), padding=1)
+    g = _j_split_conv(j_conv2d, want_r, W, padding=1)
     want_z = n(j_soft_nonneg(y - LR * g, jnp.asarray(tcol)[None, :, None,
                                                             None]))
     zn, delta = TC.conv_adjoint_prox(r, t(z), t(zp), t(W), scal,
@@ -273,7 +286,8 @@ def _jax_steps(x, W, z, zp, moms, ths, pad):
 def test_single_step_plain_matches_jax_step(geom, nonneg, percol):
     """K9a's and K9b's plain versions against JAX's decoder residual and
     prox step at each geometry, with a scalar or a per-channel threshold
-    (atol 1e-5, as test_single_step_kernels_plain). W is scaled by
+    (atol 1e-5, as test_single_step_kernels_plain), the convolutions as
+    the port's 'f32' splits them, from JAX's own split. W is scaled by
     1/sqrt(Cz kh kw), the decoder's fan-in, so the residual is O(1) at
     every width."""
     cz, cx, hz, wz, kh, kw, pad = geom
@@ -281,12 +295,12 @@ def test_single_step_plain_matches_jax_step(geom, nonneg, percol):
                                 wscale=1.0 / np.sqrt(cz * kh * kw))
     scal = torch.tensor([LR, 0.1 * LR, 0.3, 1.0])
     y = jnp.asarray(z) + 0.3 * (jnp.asarray(z) - jnp.asarray(zp))
-    want_r = n(j_conv_t(y, jnp.asarray(W), padding=pad) - jnp.asarray(x))
+    want_r = n(_j_split_conv(j_conv_t, y, W, padding=pad) - jnp.asarray(x))
     r = TC.conv_decode_resid(t(x), t(z), t(zp), t(W), scal, padding=pad)
     np.testing.assert_allclose(n(r), want_r, atol=1e-5)
     tcol = (rng.uniform(0.05, 0.3, (cz,)) * LR).astype(np.float32)
     th = jnp.asarray(tcol)[None, :, None, None] if percol else 0.1 * LR
-    g = j_conv2d(jnp.asarray(want_r), jnp.asarray(W), padding=pad)
+    g = _j_split_conv(j_conv2d, want_r, W, padding=pad)
     prox = j_soft_nonneg if nonneg else j_soft
     want_z = n(prox(y - LR * g, th))
     zn, delta = TC.conv_adjoint_prox(r, t(z), t(zp), t(W), scal,
@@ -341,3 +355,117 @@ def test_cpu_route_and_devices(monkeypatch):
             torch.zeros(3, dtype=torch.int32, device="meta")))
     with pytest.raises(ValueError, match="kernel_precision"):
         TC.fused_conv_fista_multistep(*args, kernel_precision="fp8")
+
+
+# 'f32' is the bf16x3 split in both packages: (Cz, Cx, Hz, Wz, kh, kw, pad,
+# nonneg, per-channel threshold, restart, steps)
+_SPLIT_CASES = [
+    (8, 2, 7, 9, 4, 2, 1, True, True, True, 3),
+    (16, 8, 6, 6, 3, 3, 0, True, False, False, 3),
+    (16, 1, 10, 10, 5, 5, 0, False, False, True, 1),
+    (8, 1, 5, 5, 3, 9, 1, False, True, False, 1),
+]
+
+
+@pytest.mark.parametrize("case", _SPLIT_CASES)
+def test_split_plain_matches_jax_split_kernel(case):
+    """The plain 'f32' versions, whose convolutions are bf16x3 splits, over
+    one step and three, against JAX's interpret-mode kernel in 'f32' (its
+    split) with restart, nonneg, a per-channel threshold and padding:
+    codes atol 3e-5 * max(1, |z|max) over several steps and 1e-5 over
+    one, delta rtol 1e-5, the restart t rtol 1e-6."""
+    cz, cx, hz, wz, kh, kw, pad, nonneg, percol, restart, steps = case
+    x, W, z, zp, rng = _problem(sum(case[:7]) + 2, 3, cz, cx, hz, wz, kh, kw,
+                                pad, wscale=1.0 / np.sqrt(cz * kh * kw),
+                                zp_scale=0.05)
+    moms = np.asarray([0.3, 0.15, 0.0][:steps], np.float32)
+    ths = ((rng.uniform(0.05, 0.3, (cz, 1)) * LR).astype(np.float32)
+           if percol else np.full((steps,), 0.1 * LR, np.float32))
+    t0 = rng.uniform(0.0, 3.0, (3,)).astype(np.float32) if restart else None
+    want = _jax_kernel(x, W, z, zp, ths, moms, steps, pad, nonneg=nonneg,
+                       t0=t0)
+    got = TC.fused_conv_fista_multistep(
+        t(x), t(z), t(zp), t(W), LR, t(ths), t(moms), steps, padding=pad,
+        nonneg=nonneg, t_vec=None if t0 is None else t(t0))
+    atol = 3e-5 if steps > 1 else 1e-5
+    for i in (0, 1):
+        _assert_codes(n(got[i]), want[i], atol_rel=atol)
+    if restart:
+        np.testing.assert_allclose(n(got[2]), want[2], rtol=1e-6)
+    np.testing.assert_allclose(float(got[-1]), want[-1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["decode", "adjoint"])
+def test_split_products_against_float64(which):
+    """The plain versions' split convolution (hi*hi + lo*hi + hi*lo, FP32
+    sums) against the same three products of JAX's own split
+    (``split_bf16_xla``) summed in float64: atol 1e-5 on values of order
+    one; and the three products are what makes it f32-grade, 2e-5 from
+    the float64 convolution of the unsplit operands."""
+    fn = {"decode": torch.nn.functional.conv_transpose2d,
+          "adjoint": torch.nn.functional.conv2d}[which]
+    cz, cx, k, pad = 16, 3, 5, 1
+    rng = np.random.default_rng(31)
+    a = rng.standard_normal((2, cz if which == "decode" else cx, 9, 8))
+    W = rng.standard_normal((cz, cx, k, k)) / np.sqrt(cz * k * k)
+    a, W = a.astype(np.float32), W.astype(np.float32)
+    got = TC._conv_product(fn, t(a), t(W), pad, "f32")
+    (a_hi, a_lo), (w_hi, w_lo) = [
+        [torch.from_numpy(np.asarray(p.astype(jnp.float32), np.float64))
+         for p in j_split(jnp.asarray(v))] for v in (a, W)]
+    want = (fn(a_hi, w_hi, padding=pad) + fn(a_lo, w_hi, padding=pad)
+            + fn(a_hi, w_lo, padding=pad))
+    np.testing.assert_allclose(n(got), n(want), atol=1e-5)
+    exact = fn(torch.from_numpy(a).double(), torch.from_numpy(W).double(),
+               padding=pad)
+    np.testing.assert_allclose(n(got), n(exact), atol=2e-5)
+
+
+@pytest.mark.parametrize("kp", ["f32", "bf16"])
+def test_conv_operands_match_jax_split(kp):
+    """The kernels' operands (W's parts, made once a call) hold JAX's split
+    of W (``split_bf16_xla``; 'bf16': its rounding) in the kernels'
+    layouts: K9a's row cx kw + kj at depth cz for each filter row; K9b's
+    row cz at depth cx kw + kj for each filter row, or, where Cx kw < 16,
+    at depth (cx kh + ki) kw + kj (W as it lies); 8-deep chunks of 16
+    bytes a row, zero past the real rows and depths."""
+    for cz, cx, kh, kw in ((13, 4, 3, 5), (13, 3, 4, 5)):
+        W = np.random.default_rng(cx).standard_normal((cz, cx, kh, kw))
+        W = W.astype(np.float32)
+        ops = TC.conv_operands(t(W), kp)
+        parts = ([np.asarray(p.astype(jnp.float32)) for p in j_split(W)]
+                 if kp == "f32" else [np.asarray(j_round(jnp.asarray(W)))])
+        fold = cx * kw < 16
+        ck, cb = cx * kw, cx * kh * kw if fold else cx * kw
+        da, db = -(-cz // 16) * 16, -(-cb // 16) * 16
+        wa, wb = n(ops.wa.float()), n(ops.wb.float())
+        assert wa.shape == (len(parts), kh, da // 8, 256, 8)
+        assert wb.shape == (len(parts), 1 if fold else kh, db // 8, 256, 8)
+        for p, part in enumerate(parts):
+            # [filter rows, depth, rows] from the chunked layouts
+            a = wa[p].transpose(0, 1, 3, 2).reshape(kh, da, 256)
+            b = wb[p].transpose(0, 1, 3, 2).reshape(-1, db, 256)
+            want_a = part.transpose(2, 0, 1, 3).reshape(kh, cz, ck)
+            want_b = (part.reshape(1, cz, cb).transpose(0, 2, 1) if fold
+                      else part.transpose(2, 1, 3, 0).reshape(kh, ck, cz))
+            np.testing.assert_array_equal(a[:, :cz, :ck], want_a)
+            np.testing.assert_array_equal(b[:, :cb, :cz], want_b)
+            assert not a[:, cz:].any() and not a[:, :, ck:].any()
+            assert not b[:, cb:].any() and not b[:, :, cz:].any()
+
+
+@pytest.mark.parametrize("geom", [(1, 8, 1, 8, 512, 1), (1, 8, 1, 8, 1, 300)])
+def test_gate_keeps_tall_and_wide_filters(geom):
+    """The kernels shrink their stages to fit shared memory, so the gate is
+    JAX's conditions alone: a 512 x 1 filter (4096 tap rows) and a 1 x
+    300 one route fused, as they did with the SIMT kernels, and one image
+    channel more than 4096 tap rows allow does not."""
+    n_, cz, cx, hz, kh, kw = geom
+    xt = torch.zeros((n_, cx, hz + kh - 1, hz + kw - 1), device="meta")
+    zt = torch.zeros((n_, cz, hz, hz), device="meta")
+    Wt = torch.zeros((cz, cx, kh, kw), device="meta")
+    assert TC.supports_fused_conv(xt, zt, Wt, 1, 0)
+    over = 4096 // (kh * -(-kw // 8) * 8) + 1   # image channels past 4096
+    xo = torch.zeros((n_, over) + tuple(xt.shape[2:]), device="meta")
+    Wo = torch.zeros((cz, over, kh, kw), device="meta")
+    assert not TC.supports_fused_conv(xo, zt, Wo, 1, 0)

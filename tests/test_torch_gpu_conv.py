@@ -10,7 +10,8 @@ PyTorch, run the card's tests without the JAX-based conftest:
 
 Tolerances as in chip_smoke.py phase 14: f32 codes atol 3e-5 * max(1,
 |z|max) and delta 1e-5 relative; bf16 codes 1e-3 * scale and delta 1e-4;
-the restart t equal.
+the restart t equal. 'f32' is the bf16x3 split in the kernels and in the
+plain versions.
 """
 
 import numpy as np
@@ -44,13 +45,17 @@ def _operands(seed, nn, cz, cx, hz, wz, kh, kw, pad):
 
 @pytest.mark.parametrize("kp", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [
-    (3, 8, 2, 7, 9, 4, 2, 1),      # ragged taps, pad 1
-    (3, 8, 1, 6, 8, 11, 11, 0),    # kw = 11, the runtime-width path
-    (2, 13, 5, 40, 37, 5, 5, 2),   # two tiles each way, ragged channels
+    (3, 8, 2, 7, 9, 4, 2, 1),       # ragged taps, pad 1
+    (3, 8, 1, 6, 8, 11, 11, 0),     # kw = 11: tall patches
+    (3, 8, 1, 5, 5, 3, 9, 1),       # kw = 9, pad 1
+    (2, 13, 5, 40, 37, 5, 5, 2),    # two tiles each way, ragged channels
+    (256, 64, 1, 26, 26, 7, 7, 0),  # the headline: n 16 (K9a), 64 (K9b)
+    (64, 256, 16, 28, 28, 5, 5, 0),  # the rich width: n 128, two K9b tiles
 ])
 def test_kernels_match_plain(kp, shape):
     """Three sub-steps (lr = 0.9 / L) with nonneg, a per-channel threshold
-    and restart: codes, delta and the t vector against the plain versions,
+    and restart, at chip_smoke.py phase 14's shapes: codes, delta and the
+    t vector against the plain versions ('f32' the bf16x3 split in both),
     with 3 launches of each kernel."""
     _need_card()
     x, W, z, zp, g = _operands(sum(shape), *shape)
@@ -77,18 +82,26 @@ def test_kernels_match_plain(kp, shape):
                                rtol=TOL[kp][1])
 
 
-def test_delta_and_restart_are_deterministic():
+@pytest.mark.parametrize("kp", ["f32", "bf16"])
+def test_delta_and_restart_are_deterministic(kp):
     """Block partials summed in a fixed order: the same launch twice gives
-    the same delta and t bit for bit."""
+    the same delta and t bit for bit, and W's operands made once a call
+    (conv_operands) give what a launch that makes its own gives."""
     _need_card()
     x, W, z, zp, g = _operands(5, 64, 64, 1, 26, 26, 7, 7, 0)
     scal = torch.tensor([0.02, 0.002, 0.3, 1.0], device="cuda")
     t0 = 3 * torch.rand(64, generator=g, device="cuda")
-    r = TC.conv_decode_resid(x, z, zp, W, scal)
+    ops = TC.conv_operands(W, kp)
+    r = TC.conv_decode_resid(x, z, zp, W, scal, kernel_precision=kp)
+    assert torch.equal(r, TC.conv_decode_resid(x, z, zp, W, scal,
+                                               kernel_precision=kp,
+                                               operands=ops))
     outs = []
-    for _ in range(2):
+    for operands in (None, ops):
         t_io = t0.clone()
-        zn, delta = TC.conv_adjoint_prox(r, z, zp, W, scal, t_vec=t_io)
+        zn, delta = TC.conv_adjoint_prox(r, z, zp, W, scal, t_vec=t_io,
+                                         kernel_precision=kp,
+                                         operands=operands)
         outs.append((zn, float(delta), t_io))
     assert torch.equal(outs[0][0], outs[1][0])
     assert outs[0][1] == outs[1][1]
@@ -124,8 +137,9 @@ def test_ista_conv2d_on_the_card_launches_the_kernels():
 
 def test_kernels_refuse_what_they_do_not_take():
     """Wrong dtype, a non-contiguous tensor, mismatched shapes, a CPU
-    operand, an output that is z itself, or a scratch too small: each
-    raises before or at the launch, and nothing runs the plain version."""
+    operand, an output that is z itself, a scratch too small, or W's
+    operands of the other precision or dtype: each raises before or at the
+    launch, and nothing runs the plain version."""
     _need_card()
     x, W, z, zp, _ = _operands(7, 2, 8, 1, 6, 6, 3, 3, 0)
     scal = torch.tensor([0.02, 0.002, 0.3, 1.0], device="cuda")
@@ -145,6 +159,12 @@ def test_kernels_refuse_what_they_do_not_take():
              torch.zeros(3, dtype=torch.int32, device="cuda"))
     with pytest.raises(RuntimeError, match="conv_adjoint_prox"):
         TC.conv_adjoint_prox(r, z, zp, W, scal, scratch=small)
+    bf16_ops = TC.conv_operands(W, "bf16")   # one part, not f32's two
+    with pytest.raises(ValueError, match="operands"):
+        TC.conv_decode_resid(x, z, zp, W, scal, operands=bf16_ops)
+    with pytest.raises(ValueError):
+        TC.conv_adjoint_prox(r, z, zp, W, scal, operands=TC.ConvOperands(
+            bf16_ops.wa.float(), bf16_ops.wb.float()))
     after = _cuda.launch_counts()
     assert after["conv_decode_resid_f32"] - before[
         "conv_decode_resid_f32"] == 1
