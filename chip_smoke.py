@@ -47,8 +47,11 @@ before the last line is printed.
    (8 steps) in f32 and bf16, plain and with a per-feature row, nonneg,
    l2 and rows inactive on entry (b and z atol 1e-6, the active mask
    equal); ``fused_cd_mod_sweep`` with converged rows and a zero atom (z
-   and R atol 1e-4 after one sweep, zmax and dzmax rtol 1e-5). Then both
-   alone at the headline shape, timed beside their plain versions.
+   and R atol 1e-4 after one sweep, zmax and dzmax rtol 1e-5) against its
+   plain version at the kernel's 16-atom chunk. Then both alone at the
+   headline shape, timed beside their plain versions, and K4 also at the
+   training width (16384x(256->1024)), each width a row of its own with
+   the bound of K4's FP32 FFMA route.
 6. Training through the CLI at the training width (N=16384, D=256 ->
    K=1024, alpha=0.1; signals drawn from a sparse model over a random
    dictionary): ``python -m lasso_tpu_torch train --steps 3
@@ -59,10 +62,14 @@ before the last line is printed.
    the E-step and M-step times of one step; one EM step with
    ``use_pallas=False`` on the card (losses rtol 1e-4).
 7. Cyclic CD: ``dict_learning(algorithm='cd-mod', max_iter=20, tol=1e-4,
-   dict_update='block')`` for 2 steps at the training width, then one
+   dict_update='block')`` for 2 steps at the training width (the EM
+   step's time, K4's launches there and sweeps/s), then one
    ``coord_descent_mod`` at 16384x(512->2048) (sweep launches equal to
-   ``n_iter``, finite gaps, sweeps/s), held against ``use_pallas=False``
-   at ``max_iter=5`` (z atol 1e-4, gap within 1e-4 relative above 1).
+   ``n_iter``, finite gaps, sweeps/s; torch.profiler's split of a solve
+   into K4, the gap check's kernels and the host), held against
+   ``use_pallas=False`` at ``max_iter=5`` (z atol 1e-4, gap within 1e-4
+   relative above 1). The K4 rows' launches are those of the solve at the
+   headline and of the training at the training width.
 8. The group-prox kernel (K5, ``csrc/group.cu``) against its plain version
    on the card, at 200x(128->256) and at 16384x(512->2048), in f32 and
    bf16: one 8-sub-step ``fused_group_fista_multistep`` (K1, K2 and K5 per
@@ -204,6 +211,7 @@ name and power limit as nvidia-smi gives them; the last line is
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib
 import itertools
@@ -339,17 +347,19 @@ def kernel_seconds(fn):
 
 def kernel_ms_by_name(fn):
     """Milliseconds of CUDA kernel time of one call of ``fn`` by kernel
-    name, from torch.profiler."""
+    name, from torch.profiler. Names are cut to 40 characters, and the
+    kernels whose names share those 40 are added up under them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return {e.key[:40]: round(e.self_device_time_total / 1e3, 4)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    ms = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            ms[e.key[:40]] += e.self_device_time_total / 1e3
+    return {k: round(v, 4) for k, v in ms.items()}
 
 
 def sass_mma_counts(library):
@@ -721,29 +731,44 @@ def phase_cd_kernels():
         print(f"[5] {json.dumps(rows[f'cd_steps_{kp}'])} (8 steps a launch; "
               f"no PyTorch call computes a greedy CD step: library null)")
     sweep_args = (o["z0"], o["R"], none, o["W"], o["nrm"], 0.1)
+    rows["cd_mod_sweep"] = cd_mod_sweep_row(sweep_args, N, D, n_atoms)
+    del o, sweep_args
+    # and at the training width (phase 7's dict_learning)
+    o = cd_operands(TRAIN_N, TRAIN_D, TRAIN_K, seed=2)
+    sweep_args = (o["z0"], o["R"], torch.zeros_like(o["conv"]), o["W"],
+                  o["nrm"], 0.1)
+    rows["cd_mod_sweep_train"] = cd_mod_sweep_row(
+        sweep_args, TRAIN_N, TRAIN_D, int((o["nrm"] != 0).sum()))
+    return rows
+
+
+def cd_mod_sweep_row(sweep_args, n, d, n_atoms):
+    """K4 alone on every row of ``sweep_args`` against its plain version at
+    the kernel's chunk, timed, with its bound: a dot product and a rank-1
+    update, 4 D operations, per row and nonzero atom in FP32 FFMA (K4's
+    route), or the bytes of z and R in and out and W once."""
     got = C.fused_cd_mod_sweep(*sweep_args)
     torch.cuda.synchronize()
     want = C.fused_cd_mod_sweep_plain(*sweep_args)
     err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
-    check(err <= 1e-4, "cd_mod_sweep at the headline shape")
-    # operations: a dot product and a rank-1 update, 4 D, per row and
-    # nonzero atom; bytes: z and R in and out, W once
-    t_ops = 4 * N * n_atoms * D / PEAK_FLOPS["f32"] * 1e3
-    t_bytes = 4 * (2 * N * K + 2 * N * D + K * D + K + 3 * N) \
+    k = sweep_args[0].shape[1]
+    check(err <= 1e-4, f"cd_mod_sweep at {n}x{d}->{k}")
+    t_ops = 4 * n * n_atoms * d / PEAK_FLOPS["f32"] * 1e3
+    t_bytes = 4 * (2 * n * k + 2 * n * d + k * d + k + 3 * n) \
         / HBM_BYTES_PER_S * 1e3
-    rows["cd_mod_sweep"] = {
-        "name": "cd_mod_sweep", "route": "cuda", "source": CD_SOURCE,
-        "replaces": CD_REPLACES["cd_mod_sweep"], "launches": None,
-        "max_abs_err": err,
+    row = {
+        "name": "cd_mod_sweep", "shape": f"{n}x{d}->{k}", "route": "cuda",
+        "source": CD_SOURCE, "replaces": CD_REPLACES["cd_mod_sweep"],
+        "launches": None, "max_abs_err": err,
         "ms": cuda_ms(lambda: C.fused_cd_mod_sweep(*sweep_args), reps=10),
         "plain_ms": cuda_ms(lambda: C.fused_cd_mod_sweep_plain(*sweep_args),
                             reps=1, warm=1),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None}
-    print(f"[5] {json.dumps(rows['cd_mod_sweep'])} (one sweep; no PyTorch "
-          f"call computes a cyclic CD sweep: library null)")
-    return rows
+    print(f"[5] {json.dumps(row)} (one sweep, its Gram prologue included; "
+          f"no PyTorch call computes a cyclic CD sweep: library null)")
+    return row
 
 
 def training_data():
@@ -849,7 +874,8 @@ def phase_train_cli(X_np):
 
 def phase_cd_mod(X_np, x_np, W_np):
     """Cyclic CD: training at the training width, then one solve at the
-    headline width held against the plain path."""
+    headline width held against the plain path. Returns K4's launches at
+    each width."""
     X = torch.from_numpy(X_np).to(DEV)
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
@@ -861,10 +887,13 @@ def phase_cd_mod(X_np, x_np, W_np):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _cuda.launch_counts()
+    train_sweeps = counts.get("cd_mod_sweep", 0)
     print("[7] cd-mod training launch counts:", json.dumps(counts))
-    print(f"[7] cd-mod training: 2 EM steps in {seconds:.3f} s, losses "
-          f"{losses.cpu().numpy().tolist()}")
-    check(0 < counts.get("cd_mod_sweep", 0) <= 40
+    print(f"[7] cd-mod training: 2 EM steps in {seconds:.3f} s "
+          f"({seconds / 2:.4f} s an EM step), {train_sweeps} sweeps "
+          f"({train_sweeps / seconds:.3f} sweeps/s with the M-steps), "
+          f"losses {losses.cpu().numpy().tolist()}")
+    check(0 < train_sweeps <= 40
           and bool(torch.isfinite(losses).all()), "cd-mod training")
 
     x = torch.from_numpy(x_np).to(DEV)
@@ -884,6 +913,24 @@ def phase_cd_mod(X_np, x_np, W_np):
     check(sweeps == n_iter and bool(torch.isfinite(gap).all())
           and bool(torch.isfinite(z).all()), "cd-mod at the headline")
 
+    # where a sweep's time goes: K4, the gap check's kernels, the host
+    solve = lambda: coord_descent_mod(  # noqa: E731
+        x, W, alpha=0.1, max_iter=20, tol=1e-4, return_iters=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_iter = solve()[2]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name = kernel_ms_by_name(solve)
+    k4 = sum(v for k, v in by_name.items() if "cd_mod" in k)
+    busy = sum(by_name.values())
+    print(f"[7] one solve of {n_iter} sweeps: {wall:.3f} ms wall, "
+          f"{busy:.3f} ms of kernels (torch.profiler): K4 and its prologue "
+          f"{k4:.3f} ms ({k4 / n_iter:.4f} a sweep, {100 * k4 / wall:.1f}% "
+          f"of the wall time), the gap check and the rest {busy - k4:.3f} ms "
+          f"({(busy - k4) / n_iter:.4f} a sweep), the host "
+          f"{wall - busy:.3f} ms; by kernel {json.dumps(by_name)}")
+
     out = {}
     for use_pallas in ("auto", False):
         out[use_pallas] = coord_descent_mod(
@@ -898,7 +945,7 @@ def phase_cd_mod(X_np, x_np, W_np):
           f"{out[False][2]}")
     check(zerr <= 1e-4 and gerr <= 1e-4
           and out["auto"][2] == out[False][2], "cd-mod kernel vs plain")
-    return counts
+    return {"train": train_sweeps, "headline": sweeps}
 
 
 def ragged_groups(k, rng):
@@ -2459,9 +2506,10 @@ def main():
     counts = phase_train_cli(X_train)
     rows.append({**cd_rows["cd_steps_f32"],
                  "launches": counts["cd_steps_f32"]})
-    counts = phase_cd_mod(X_train, x_np, W_np)
-    rows.append({**cd_rows["cd_mod_sweep"],
-                 "launches": counts["cd_mod_sweep"]})
+    sweeps = phase_cd_mod(X_train, x_np, W_np)
+    rows.append({**cd_rows["cd_mod_sweep"], "launches": sweeps["headline"]})
+    rows.append({**cd_rows["cd_mod_sweep_train"],
+                 "launches": sweeps["train"]})
     group_rows = phase_group_kernels()
     counts = phase_group_slice(*group_problem())
     for kp in ("f32", "bf16"):

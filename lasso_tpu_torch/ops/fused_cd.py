@@ -11,7 +11,9 @@ Counterpart of the JAX package's ``ops/fused_cd.py``. Two kernels of
   ``|dz| <= tol_k``. A frozen row is left as it is, so extra steps change
   no stopping decision.
 * :func:`fused_cd_mod_sweep` (K4): one cyclic sweep over all K atoms of the
-  sklearn-style CD, with per-row ``zmax`` and ``dzmax``.
+  sklearn-style CD, with per-row ``zmax`` and ``dzmax``, blocked over
+  chunks of :data:`SWEEP_TJ` atoms (two products a chunk and a per-row
+  triangular recurrence through the chunk's Gram block).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 PyTorch version (:func:`fused_cd_steps_plain`,
@@ -43,8 +45,9 @@ CD_STEPS = {kp: _cuda.CudaKernel("cd", f"cd_steps_{kp}",
                                  + [_I] * 3 + [_P])
             for kp in ("f32", "bf16")}
 CD_MOD_SWEEP = _cuda.CudaKernel("cd", "cd_mod_sweep",
-                                [_P] * 5 + [_F] * 2 + [_P] * 4 + [_I] * 3
+                                [_P] * 5 + [_F] * 2 + [_P] * 5 + [_I] * 3
                                 + [_P])
+SWEEP_TJ = 16                    # atoms a chunk of K4 (SW_TJ in csrc/cd.cu)
 _SMEM_FLOATS = 227 * 1024 // 4   # shared memory of one H100 block
 
 
@@ -149,7 +152,10 @@ def fused_cd_mod_sweep(z, R, converged, weight, norm_cols, alpha, l2=0.0):
     [D, K]; norm_cols: [K] squared column norms; alpha, l2: scalars.
     Returns ``(z, R, z_max, d_z_max)`` as new tensors, with the meanings
     of the JAX package's sweep. On a CUDA tensor the kernel reads W
-    transposed, ``[K, D]``, so that each atom is one contiguous row.
+    transposed, ``[K, D]``, so that each atom is one contiguous row, and
+    each chunk's Gram entries and divisors from a scratch buffer that its
+    prologue fills first; a CPU tensor runs the plain version at the
+    kernel's chunk.
     """
     if z.device.type == "cpu":
         return fused_cd_mod_sweep_plain(z, R, converged, weight, norm_cols,
@@ -164,42 +170,54 @@ def fused_cd_mod_sweep(z, R, converged, weight, norm_cols, alpha, l2=0.0):
                    "norm_cols": (nrm, (K,)), "converged": (act, (N,))})
     if min(N, D, K) == 0:
         raise ValueError(f"empty problem N={N}, D={D}, K={K}")
-    if D + 1 > _SMEM_FLOATS:
-        raise ValueError(f"D={D}: one atom exceeds a block's shared memory")
+    gram = torch.empty((_cuda.load("cd").cd_mod_gram_floats(K),),
+                       dtype=torch.float32, device=z.device)
     z_out, R_out = torch.empty_like(z), torch.empty_like(R)
     zmax = torch.empty((N,), dtype=torch.float32, device=z.device)
     dzmax = torch.empty_like(zmax)
     CD_MOD_SWEEP(z.data_ptr(), R.data_ptr(), act.data_ptr(), wt.data_ptr(),
                  nrm.data_ptr(), float(_f32(alpha)), float(_f32(l2)),
-                 z_out.data_ptr(), R_out.data_ptr(), zmax.data_ptr(),
-                 dzmax.data_ptr(), N, D, K, _cuda.stream())
+                 gram.data_ptr(), z_out.data_ptr(), R_out.data_ptr(),
+                 zmax.data_ptr(), dzmax.data_ptr(), N, D, K, _cuda.stream())
     return z_out, R_out, zmax, dzmax
 
 
 def fused_cd_mod_sweep_plain(z, R, converged, weight, norm_cols, alpha,
-                             l2=0.0):
-    """The plain version of :func:`fused_cd_mod_sweep`, on any device: the
-    JAX kernel's fused form, ``rho = R . w_j + add ||w_j||^2`` and one
-    rank-1 correction ``R += (add - sub) w_j`` per atom (both fused
-    multiply-adds)."""
+                             l2=0.0, tj=SWEEP_TJ):
+    """The plain version of :func:`fused_cd_mod_sweep`, on any device, over
+    chunks of ``tj`` atoms as the kernel takes them: ``P = R W_c`` at the
+    chunk's start, then per atom j of the chunk the JAX kernel's fused form,
+    ``rho = P_j + add ||w_j||^2`` and ``P_l += (add - sub) G[j, l]`` for the
+    chunk's later atoms l (``G = W_c^T W_c``; fused multiply-adds), then
+    ``R += C W_c^T``. With ``tj=1`` this is one dot product and one rank-1
+    correction of R per atom, the order of the unblocked sweep."""
     N, K = z.shape
     z = z.clone()
     act_s = (~converged).to(torch.float32)
     zmax = torch.zeros((N,), dtype=torch.float32, device=z.device)
     dzmax = torch.zeros_like(zmax)
-    for j in range(K):
-        wj = weight[:, j]
-        nj = norm_cols[j]
-        act = act_s * (nj != 0).to(torch.float32)
-        zj = z[:, j].clone()
-        add = act * torch.where(zj != 0, zj, 0.0)
-        rho = torch.addcmul(torch.sum(R * wj, dim=1), add, nj)
-        denom = torch.where(nj != 0, nj, 1.0) + l2
-        z_new = soft_threshold(rho, alpha) / denom
-        z_new = torch.where(act > 0, z_new, zj)
-        sub = act * torch.where(z_new != 0, z_new, 0.0)
-        R = torch.addcmul(R, (add - sub)[:, None], wj)
-        z[:, j] = z_new
-        dzmax = torch.maximum(dzmax, torch.abs(z_new - zj) * act)
-        zmax = torch.maximum(zmax, torch.abs(z_new) * act)
+    for j0 in range(0, K, tj):
+        Wc = weight[:, j0:j0 + tj]                                # [D, t]
+        t = Wc.shape[1]
+        P = R @ Wc                                                # [N, t]
+        G = Wc.T @ Wc
+        C = torch.zeros_like(P)
+        for jj in range(t):
+            j = j0 + jj
+            nj = norm_cols[j]
+            act = act_s * (nj != 0).to(torch.float32)
+            zj = z[:, j].clone()
+            add = act * torch.where(zj != 0, zj, 0.0)
+            rho = torch.addcmul(P[:, jj], add, nj)
+            denom = torch.where(nj != 0, nj, 1.0) + l2
+            z_new = soft_threshold(rho, alpha) / denom
+            z_new = torch.where(act > 0, z_new, zj)
+            sub = act * torch.where(z_new != 0, z_new, 0.0)
+            C[:, jj] = add - sub
+            P[:, jj + 1:] = torch.addcmul(P[:, jj + 1:], C[:, jj:jj + 1],
+                                          G[jj, jj + 1:])
+            z[:, j] = z_new
+            dzmax = torch.maximum(dzmax, torch.abs(z_new - zj) * act)
+            zmax = torch.maximum(zmax, torch.abs(z_new) * act)
+        R = torch.addmm(R, C, Wc.T)
     return z, R, zmax, dzmax

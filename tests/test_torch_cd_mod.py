@@ -39,10 +39,13 @@ def both_cdm(x, W, z0=None, alpha=0.3, **kw):
     return n(zj), n(gj), int(kj), n(zt), n(gt), kt
 
 
+@pytest.mark.parametrize("tj", [1, tfused.SWEEP_TJ, 48])
 @pytest.mark.parametrize("l2", [0.0, 0.3])
-def test_sweep_plain_matches_jax_kernel(rng, l2):
-    """One sweep from a warm start, with converged rows and one zero
-    atom."""
+def test_sweep_plain_matches_jax_kernel(rng, l2, tj):
+    """One sweep from a warm start, with converged rows and one zero atom,
+    blocked over chunks of ``tj`` atoms: one atom at a time (the unblocked
+    order), the kernel's chunk (through the wrapper's CPU path) and a chunk
+    that does not divide K=128."""
     import jax.numpy as jnp
     x, W = cdm_problem(rng, n_=32)
     W[:, 7] = 0.0
@@ -55,8 +58,11 @@ def test_sweep_plain_matches_jax_kernel(rng, l2):
     got_j = jfused.fused_cd_mod_sweep(
         jnp.asarray(z), jnp.asarray(R), jnp.asarray(conv), jnp.asarray(W),
         jnp.asarray(nrm), 0.3, l2=l2, interpret=True)
-    got_t = tfused.fused_cd_mod_sweep(t(z), t(R), t(conv), t(W), t(nrm),
-                                      0.3, l2=l2)
+    args = (t(z), t(R), t(conv), t(W), t(nrm), 0.3)
+    if tj == tfused.SWEEP_TJ:
+        got_t = tfused.fused_cd_mod_sweep(*args, l2=l2)
+    else:
+        got_t = tfused.fused_cd_mod_sweep_plain(*args, l2=l2, tj=tj)
     for a, c in zip(got_t, got_j):
         np.testing.assert_allclose(n(a), n(c), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(n(got_t[0])[conv], z[conv])

@@ -117,28 +117,46 @@ def test_cd_steps_kernel_matches_plain(kp):
     assert T_CD.CD_STEPS[kp].launches - before == 2
 
 
-@pytest.mark.parametrize("d", [256, 1100])
-def test_cd_mod_sweep_kernel_matches_plain(d):
-    """K4 against its plain version on the card, with converged rows and
-    a zero atom, with R in registers (D=256) and in device memory
-    (D=1100): z and R atol 1e-4 (sums in another order), zmax and dzmax
-    rtol 1e-5."""
+@pytest.mark.parametrize("rows,d,k,conv_every,offset", [
+    (200, 256, 384, 6, 0), (200, 1100, 384, 6, 0), (203, 250, 390, 6, 0),
+    (200, 512, 384, 1, 0), (70, 2050, 100, 3, 0), (203, 100, 390, 6, 0),
+    (200, 384, 384, 6, 0), (100, 256, 160, 6, 1)],
+    ids=["registers", "device_memory", "ragged_n_k_d", "all_converged",
+         "large_d", "registers_d100", "registers_d384", "misaligned_atoms"])
+def test_cd_mod_sweep_kernel_matches_plain(rows, d, k, conv_every, offset):
+    """K4 against its plain version at the kernel's chunk on the card, with
+    converged rows and a zero atom: R in registers (D=256, and each of the
+    register tiles: D <= 128 unaligned, 384 aligned) and in device
+    memory (D=1100); N not a multiple of the 32-row block, K not one of
+    the 16-atom chunk and D not one of 4 (rows not 16-byte aligned); every
+    row converged (the blocks copy through); a large D with few atoms;
+    W given as the transpose of a contiguous [K, D] view ``offset`` floats
+    past an aligned address, which the wrapper hands the kernel as it is:
+    its rows are not 16-byte aligned although D is a multiple of 4.
+    z and R atol 1e-4 (sums in another order), zmax and dzmax rtol 1e-5."""
     _need_card()
     rng = np.random.default_rng(1)
-    x, z, _, W = (t(a).cuda() for a in make_problem(rng, 200, d, 384))
+    x, z, _, W = (t(a).cuda() for a in make_problem(rng, rows, d, k))
     W[:, 5] = 0.0
-    z = z * (torch.rand(200, 384, device="cuda") < 0.1)
+    z = z * (torch.rand(rows, k, device="cuda") < 0.1)
     R = x - z @ W.T
-    conv = torch.zeros(200, dtype=torch.bool, device="cuda")
-    conv[::6] = True
+    conv = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    conv[::conv_every] = True
     nrm = (W * W).sum(0)
-    got = T_CD.fused_cd_mod_sweep(z, R, conv, W, nrm, 0.1, l2=0.2)
+    Wk = W
+    if offset:
+        store = torch.empty(k * d + offset, device="cuda")
+        store[offset:].view(k, d).copy_(W.T)
+        Wk = store[offset:].view(k, d).T
+        assert Wk.T.contiguous().data_ptr() % 16 != 0
+    got = T_CD.fused_cd_mod_sweep(z, R, conv, Wk, nrm, 0.1, l2=0.2)
     want = T_CD.fused_cd_mod_sweep_plain(z, R, conv, W, nrm, 0.1, l2=0.2)
     for a, c in zip(got[:2], want[:2]):
         np.testing.assert_allclose(n(a), n(c), rtol=0, atol=1e-4)
     for a, c in zip(got[2:], want[2:]):
         np.testing.assert_allclose(n(a), n(c), rtol=1e-5, atol=1e-7)
     np.testing.assert_array_equal(n(got[0])[n(conv)], n(z)[n(conv)])
+    np.testing.assert_array_equal(n(got[1])[n(conv)], n(R)[n(conv)])
 
 
 @pytest.mark.parametrize("kp", ["f32", "bf16"])
