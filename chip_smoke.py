@@ -99,9 +99,10 @@ before the last line is printed.
    ``chunked_encode(screen=True)`` at alpha=3.5, where screening shrinks
    K, against the unscreened encode (atol 1e-4).
 10. The OMP kernels against their plain versions on the card: the fused
-   solve (K6a ``omp_select`` on the tensor cores, K6b ``omp_orth``, K6d
-   ``omp_orth_cgs2`` with ``gs='cgs2'``, K6c ``omp_backsub`` of
-   ``csrc/omp.cu``) at 1000x(256->512), N not a multiple of the 128-row
+   solve (K6a ``omp_select`` on the tensor cores, K6b ``omp_orth``, which
+   streams the live rows of Q through shared memory by bulk copies up to
+   D = 1024, K6d ``omp_orth_cgs2`` with ``gs='cgs2'``, K6c ``omp_backsub``
+   of ``csrc/omp.cu``) at 1000x(256->512), N not a multiple of the 128-row
    tile, with each Gram-Schmidt, with T=13 in f32 (K6a's bf16x3 split) and
    bf16, with a tol freeze mid-run (T=16), by
    the JAX tests' equivalence rule (codes atol 2e-4 where the supports
@@ -120,7 +121,8 @@ before the last line is printed.
    and K6d's step 32 from one state (idx, valid and masks equal; r, q_k,
    R's column, d_k and r's bf16 split at rtol 2e-4 / atol 1e-5) and K6c on
    the f32 solve's state (rtol 2e-4 / atol 1e-5) against their plain
-   versions; K7 over 64 appends against its plain
+   versions, K6b's and K6d's rows with their times at steps 0, 32 and 63
+   beside the mean over the 64 steps; K7 over 64 appends against its plain
    version (rtol 2e-4 / atol 1e-5), and in place against a new factor at
    k=32. The plain versions are timed by CUDA-graph replays, which leave
    out the host's time to enqueue their many small ops; K6c's library
@@ -147,12 +149,14 @@ before the last line is printed.
    rss fallback is printed but not held there: at T=64 two greedy paths
    that part at a near-tie go on apart, and their rss differ by more than
    1e-3 (PERF.md).
-12. The Cholesky solve kernel (K8 ``chol_solve`` of ``csrc/chol.cu``)
-   against its plain version on the card, on A = Q Q^T + 2 I with Q
-   standard normal (tests/test_linalg.py:140-159), at B=16384 and D=64
-   (the 'chol-full' solve's shape), B=1024 and D=256 (the gate's limit),
-   D=12 and D=100 at B=130, and B=1 at D=64 and 256: x at rtol 1e-4 /
-   atol 1e-5. One sample that is not PD gives a non-finite x from the
+12. The Cholesky solve kernel (K8 ``chol_solve`` of ``csrc/chol.cu``: a
+   warp kernel with the factor in registers up to D = 64, at D rounded up
+   to 16, 32 or 64, and a block a sample over 32 x 32 tiles above) against
+   its plain version on the card, on A = Q Q^T + 2 I with Q standard normal
+   (tests/test_linalg.py:140-159), at B=16384 and D=64 (the 'chol-full'
+   solve's shape), B=1024 and D=256 (the gate's limit), D=12, 16, 33, 65
+   and 100 at B=130, and B=1 at D=64 and 256: x at rtol 1e-4 / atol
+   1e-5. One sample that is not PD gives a non-finite x from the
    kernel and finite ones elsewhere, and ``batch_cholesky_solve`` then
    takes the LU solve once for the whole batch (atol 1e-4 against a
    float64 solve). Then K8 alone at B=16384, D=64, timed beside its plain
@@ -1936,8 +1940,8 @@ def phase_chol_solve():
     at B=16384, D=64 (the 'chol-full' solve's shape): time, plain time,
     library time, bound."""
     errs = {}
-    for B_, D_ in ((N, OMP_T), (1024, 256), (130, 12), (130, 100),
-                   (1, OMP_T), (1, 256)):
+    for B_, D_ in ((N, OMP_T), (1024, 256), (130, 12), (130, 16),
+                   (130, 33), (130, 65), (130, 100), (1, OMP_T), (1, 256)):
         b, A = spd_systems(B_, D_, seed=B_ + D_)
         x = B.batch_cholesky_solve_lanes(b, A)
         torch.cuda.synchronize()

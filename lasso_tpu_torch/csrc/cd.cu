@@ -88,7 +88,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "wgmma_product.cuh"  // cp.async helpers
+#include "wgmma_product.cuh"  // cp.async, mbarrier and bulk-copy helpers
 
 namespace {
 
@@ -231,24 +231,8 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[V], int lane) {
   if constexpr (O > 1) reduce_scatter<V, NOSEL, O / 2>(v, lane);
 }
 
-// one thread's arrival on `bar` that also expects `bytes` from bulk copies
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// a bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
+using wgp::bulk_copy;
+using wgp::mbar_expect_tx;
 
 // K4's prologue: for each chunk c of SW_TJ atoms, the entries G[a][b] =
 // w_a . w_b (a < b) of its Gram block, packed by pair_index into

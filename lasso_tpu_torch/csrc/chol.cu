@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -165,141 +166,444 @@ extern "C" int chol_append_solve(float* v, const float* g, const float* b,
 // which linalg/basic.py::batch_cholesky_solve calls, once a step for OMP's
 // refactorizing 'chol-full' route. The TPU kernel transposes A to
 // [D, D, B] and pads B to a multiple of 128 so that the batch fills the
-// vector lanes; here a group of TPS threads owns one sample, and nothing
-// is transposed or padded.
+// vector lanes; here a sample belongs to one group of threads, and nothing
+// is transposed or padded in device memory.
 //
 // The arithmetic is the TPU kernel's: the column recurrence
 //   for j: inv = rsqrt(a_jj); L[j:, j] = a[j:, j] * inv;
 //          a[i, k] -= L[i, j] L[k, j]   (k > j, i >= k)
 // then the forward substitution L y = b and the back substitution
 // L^T x = y, both column by column (y_j = r_j / L_jj, then r_i -= y_j L_ij
-// for i > j; x_j = y_j / L_jj, then y_k -= x_j L_jk for k < j). There is no
-// pivot floor: a pivot <= 0 gives rsqrt = NaN or inf and a non-finite x,
-// which is what sends the caller's whole batch to the LU solve.
+// for i > j; x_j = y_j / L_jj, then y_k -= x_j L_jk for k < j). Every
+// element keeps its chain of fmaf(-L_ij, L_kj, a) in ascending j, the
+// pivot is __frsqrt_rn and every quotient is correctly rounded, so both
+// kernels below compute what the JAX recurrence computes, up to the fused
+// multiply-adds. There is no pivot floor: a pivot <= 0 gives rsqrt = NaN
+// or inf and a non-finite x, which is what sends the caller's whole batch
+// to the LU solve. A is taken as symmetric; the kernels read its upper
+// triangle (row k from the diagonal on is column k of the lower factor).
 //
-// A is taken as symmetric; the kernel reads its upper triangle, row k
-// from the diagonal on, which is column k of the lower factor: the sample's
-// packed lower triangle, column-major (column k, rows k..D-1, starts at
-// cs(k) = k D - k (k - 1) / 2), is loaded with contiguous reads of A, once.
-// It stays in shared memory for the whole solve: D (D + 1) / 2 floats, 8.3
-// KB at D = 64 and 131.6 KB at D = 256 (one block's 227 KB after opting in).
-// The trailing update of column j is the contiguous tail of that packed
-// array, so the TPS threads of a sample walk it with unit stride (no bank
-// conflicts), each carrying its element's (row, column) to find the two
-// factor entries it multiplies. TPS grows with D (32 up to D = 64, so a
-// warp a sample and 8 samples a block; 256 above D = 160, one sample a
-// block); all samples of a launch have the same D, so every group runs the
-// same loop and __syncthreads serves the whole block.
+// D <= 64 (OMP's 'chol-full' at T <= 64): chol_solve_warp_kernel<DP>, with
+// DP = 16, 32 or 64 the width D rounded up. A sample belongs to DP / 2
+// lanes of one warp (a warp holds 64 / DP samples), so it synchronises
+// with __syncwarp alone and waits for no other sample. Rows and columns
+// past D are an identity with a zero right-hand side, and so is a sample
+// past the batch. Lane g holds rows g and DP - 1 - g of the factor in
+// registers (ra[DP / 2] and rb[DP], indexed by the column; entries past a
+// row's diagonal are never read as values), which balances the triangle
+// over the lanes; every loop over j and k is unrolled, so no index is
+// computed in the inner loop. Column j goes to the other lanes through a
+// per-sample row of shared memory (two rows, alternating with j, so one
+// __syncwarp a column suffices); every lane reads the same float4 of it,
+// and each such broadcast feeds up to eight FFMAs of the trailing update.
+// The forward substitution runs inside the factorisation: y_j once column
+// j is scaled, then r_i -= y_j L_ij from the lane's own registers. The
+// back substitution reads row j of L from a packed copy in shared memory
+// (row j at j (j + 1) / 2), written once after the factorisation. A
+// quotient is q = a rc corrected once by its exact remainder, fma(fma(-q,
+// d, a), rc, q) with rc = __frcp_rn(d): for operands that neither overflow
+// nor underflow the correctly rounded a / d (Markstein), as __fdiv_rn.
+// A is read once, coalesced: for each k the lanes read row k of A at their
+// two rows' columns, 128 bytes a warp-wide load.
 //
-// What bounds it at B = 16384, D = 64 (OMP's 'chol-full' at T = 64): A read
-// once is 268 MB, 0.08 ms at 3.35 TB/s; its B (D^3 / 3 + 2 D^2) operations
-// are 1.6 GFLOP, 0.024 ms at 67 TFLOP/s. So it is bound by its bytes; this
-// simple version spends most of its time in the trailing update's shared
-// memory loop (about 10 instructions an element, D^3 / 6 elements a
-// sample).
+// D = 65..256: chol_solve_tile_kernel<DP>, DP = 128 or 256, a block of DP
+// threads a sample. The lower triangle lives in shared memory as 32 x 32
+// tiles (151.8 KB at DP = 256), column-major and XOR-swizzled by column,
+// loaded by 4-byte cp.async, and is factored right-looking by panels of
+// 32 columns. Warp 0 factors the panel's diagonal tile as the warp kernel
+// does (a row a lane, __syncwarp alone) with the forward substitution of
+// its rows; then each row below solves against that tile on its own (its
+// panel row in registers, the tile's columns read as broadcast float4s),
+// and the trailing update runs over whole tiles, 64 threads a tile and a
+// 4 x 4 register tile a thread, with float4 loads of the two panel tiles.
+// Each element's chain of FFMAs stays in ascending j, and a panel takes
+// three __syncthreads. One warp does the back substitution, reading row j
+// of L across the tiles.
+//
+// What bounds it at B = 16384, D = 64 (OMP's 'chol-full' at T = 64): one
+// triangle of A, b and x are 136 MB, 0.043 ms at 3.35 TB/s; its B (D^3 / 3
+// + 2 D^2) operations are 1.6 GFLOP, 0.024 ms at 67 TFLOP/s. So the bytes
+// bound it; at B = 1024, D = 256 the operations do (0.0875 ms). The warp
+// kernel issues about 2.5k FFMA (1.4k of them useful) and 0.6k broadcast
+// loads a lane for a sample, with 16 warps an SM (128 registers a
+// thread); it is bound by the latency of its chains more than by its
+// issue (PERF.md; scripts/chol_kernel_parts.py).
 
 namespace {
 
-constexpr int CS_THREADS = 256;   // threads per block for K8
+constexpr int CW_WARPS = 4;       // warps per block of the warp kernel
+constexpr unsigned FULL = 0xffffffffu;
 
-// advance the (row i, column k) position of a packed column-major lower
-// triangle of width d by n elements (column k holds rows k..d-1); stops at
-// k == d past the end
-__device__ __forceinline__ void tri_advance(int& i, int& k, int n, int d) {
-  i += n;
-  while (i >= d && k < d) {
-    i -= d - k - 1;   // the overflow past row d - 1 continues in column
-    ++k;              // k + 1, whose first row is k + 1
-  }
+// a / d correctly rounded, given rc = __frcp_rn(d): q = a rc, then one
+// correction by the exact remainder (Markstein)
+__device__ __forceinline__ float div_rn(float a, float d, float rc) {
+  const float q = __fmul_rn(a, rc);
+  return __fmaf_rn(__fmaf_rn(-q, d, a), rc, q);
 }
 
-__device__ __forceinline__ int tri_col(int k, int d) {
-  return k * d - k * (k - 1) / 2;
-}
+template <int DP>
+struct WarpSolve {
+  static constexpr int G = DP / 2;              // lanes a sample
+  static constexpr int SPB = 32 / G * CW_WARPS;  // samples a block
+  static constexpr int TRI = DP * (DP + 1) / 2;
+  // shared floats a sample: two column rows, the packed factor, 1 / L_jj,
+  // y and x
+  static constexpr int FLOATS = 2 * DP + TRI + 3 * DP;
+  static_assert(FLOATS % 4 == 0, "float4 column rows");
+};
 
-template <int TPS>
-__global__ void __launch_bounds__(CS_THREADS)
-    chol_solve_kernel(const float* __restrict__ a,
-                      const float* __restrict__ b, float* __restrict__ x,
-                      int B, int D) {
-  constexpr int S = CS_THREADS / TPS;   // samples per block
-  extern __shared__ float sh[];
-  const int tri = D * (D + 1) / 2;
-  const int g = threadIdx.x / TPS, t = threadIdx.x % TPS;
-  const size_t s = (size_t)blockIdx.x * S + g;
+template <int DP>
+__global__ void __launch_bounds__(CW_WARPS * 32, 4)
+    chol_solve_warp_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           float* __restrict__ x, int B, int D) {
+  using W = WarpSolve<DP>;
+  constexpr int G = W::G, H = DP / 2;
+  extern __shared__ __align__(16) float shw[];
+  const int g = threadIdx.x % G;          // lane within the sample's group
+  const int slot = threadIdx.x / G;       // sample within the block
+  float* col = shw + (size_t)slot * W::FLOATS;   // [2][DP]
+  float* Lp = col + 2 * DP;                      // packed rows of L
+  float* rd = Lp + W::TRI;                       // 1 / L_jj
+  float* yv = rd + DP;                           // y, then x
+  float* xv = yv + DP;
+  const int ia = g, ib = DP - 1 - g;             // the lane's two rows
+  const size_t s = (size_t)blockIdx.x * W::SPB + slot;
   const bool live = s < (size_t)B;
-  float* P = sh + (size_t)g * (tri + 2 * D);   // packed lower triangle
-  float* r = P + tri;                          // b, then x
-  float* y = r + D;                            // y, then the back sums
   const float* as = a + s * D * D;
 
-  // load: P[cs(k) + i - k] = A[k, i] for i >= k; a group past the batch
-  // takes the identity and a zero right-hand side, and stores nothing
-  {
-    int i = t, k = 0;
-    tri_advance(i, k, 0, D);
-    for (int p = t; p < tri; p += TPS) {
-      P[p] = live ? as[(size_t)k * D + i] : (i == k ? 1.f : 0.f);
-      tri_advance(i, k, TPS, D);
+  // row i of the lower factor is column i of A's upper triangle: for
+  // each k the group reads row k of A; past D, and past the batch, an
+  // identity
+  float ra[H], rb[DP];
+#pragma unroll
+  for (int k = 0; k < H; ++k)
+    ra[k] = live && k <= ia && ia < D ? __ldg(as + (size_t)k * D + ia)
+                                      : (k == ia ? 1.f : 0.f);
+#pragma unroll
+  for (int k = 0; k < DP; ++k)
+    rb[k] = live && k <= ib && ib < D ? __ldg(as + (size_t)k * D + ib)
+                                      : (k == ib ? 1.f : 0.f);
+  float rA = live && ia < D ? b[s * D + ia] : 0.f;
+  float rB = live && ib < D ? b[s * D + ib] : 0.f;
+
+  // factor column by column, with the forward substitution L y = r
+#pragma unroll
+  for (int j = 0; j < DP; ++j) {
+    const int ja = j < H ? j : H - 1;   // an index of ra in bounds
+    const int owner = j < H ? j : DP - 1 - j;
+    float* cj = col + (j & 1) * DP;
+    const float ajj = __shfl_sync(FULL, j < H ? ra[ja] : rb[j], owner, G);
+    const float inv = __frsqrt_rn(ajj);
+    const float ljj = __fmul_rn(ajj, inv);   // L_jj, as its row scales it
+    const float rc = __frcp_rn(ljj);
+    if (j < H) ra[ja] = __fmul_rn(ra[ja], inv);
+    rb[j] = __fmul_rn(rb[j], inv);
+    // column j to the group (the entries at and above the diagonal are
+    // never read)
+    if (j < H) cj[ia] = ra[ja];
+    cj[ib] = rb[j];
+    // y_j from row j's owner, then r_i -= y_j L_ij (a finished row's r
+    // is not read again)
+    const float rj = __shfl_sync(FULL, j < H ? rA : rB, owner, G);
+    const float yj = div_rn(rj, ljj, rc);
+    if (g == 0) {
+      rd[j] = rc;
+      yv[j] = yj;
     }
-    for (int i2 = t; i2 < D; i2 += TPS)
-      r[i2] = live ? b[s * D + i2] : 0.f;
-  }
-  __syncthreads();
-
-  // factor, column by column
-  for (int j = 0, cj = 0; j < D; cj += D - j, ++j) {
-    const float inv = __frsqrt_rn(P[cj]);
-    for (int i = j + 1 + t; i < D; i += TPS)
-      P[cj + i - j] = __fmul_rn(P[cj + i - j], inv);
-    __syncthreads();
-    // the diagonal is scaled here, where nothing reads it any more
-    if (t == 0) P[cj] = __fmul_rn(P[cj], inv);
-    // trailing update: the packed tail from column j + 1 on
-    int i = j + 1 + t, k = j + 1;
-    tri_advance(i, k, 0, D);
-    for (int p = cj + (D - j) + t; p < tri; p += TPS) {
-      P[p] = fmaf(-P[cj + i - j], P[cj + k - j], P[p]);
-      tri_advance(i, k, TPS, D);
+    if (j < H) rA = __fmaf_rn(-yj, ra[ja], rA);
+    rB = __fmaf_rn(-yj, rb[j], rB);
+    __syncwarp();
+    // trailing update: a[i][k] -= L_ij L_kj for k > j, both rows
+#pragma unroll
+    for (int q = (j + 1) / 4; q < DP / 4; ++q) {
+      const float4 c4 = reinterpret_cast<const float4*>(cj)[q];
+      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * q + e;
+        if (k <= j) continue;
+        if (k < H) ra[k] = __fmaf_rn(-ra[ja], cv[e], ra[k]);
+        rb[k] = __fmaf_rn(-rb[j], cv[e], rb[k]);
+      }
     }
-    __syncthreads();
   }
 
-  // forward substitution L y = r
-  for (int j = 0, cj = 0; j < D; cj += D - j, ++j) {
-    const float yj = __fdiv_rn(r[j], P[cj]);
-    for (int i = j + 1 + t; i < D; i += TPS)
-      r[i] = fmaf(-yj, P[cj + i - j], r[i]);
-    if (t == 0) y[j] = yj;
-    __syncthreads();
-  }
+  // the packed rows of L (row i at i (i + 1) / 2: for the lanes' rows
+  // these offsets are distinct modulo 32 banks)
+#pragma unroll
+  for (int k = 0; k < H; ++k)
+    if (k <= ia) Lp[ia * (ia + 1) / 2 + k] = ra[k];
+#pragma unroll
+  for (int k = 0; k < DP; ++k)
+    if (k <= ib) Lp[ib * (ib + 1) / 2 + k] = rb[k];
+  __syncwarp();
 
-  // back substitution L^T x = y; x goes to r
-  for (int j = D - 1; j >= 0; --j) {
-    const float xj = __fdiv_rn(y[j], P[tri_col(j, D)]);
-    for (int k = t; k < j; k += TPS)
-      y[k] = fmaf(-xj, P[tri_col(k, D) + j - k], y[k]);
-    if (t == 0) r[j] = xj;
-    __syncthreads();
+  // back substitution L^T x = y (the padded rows solve to 0): x_j from row
+  // j's owner, then y_k -= x_j L_jk for the lane's rows k < j (a row's y
+  // past its own step is not read again, and row j's packed neighbours lie
+  // within Lp)
+  float yA = yv[ia], yB = yv[ib];
+#pragma unroll
+  for (int j = DP - 1; j >= 0; --j) {
+    const float* row = Lp + j * (j + 1) / 2;
+    const float yj =
+        __shfl_sync(FULL, j < H ? yA : yB, j < H ? j : DP - 1 - j, G);
+    const float xj = div_rn(yj, row[j], rd[j]);
+    if (g == 0) xv[j] = xj;
+    yA = __fmaf_rn(-xj, row[ia], yA);
+    yB = __fmaf_rn(-xj, row[ib], yB);
   }
-
-  if (live)
-    for (int i = t; i < D; i += TPS) x[s * D + i] = r[i];
+  __syncwarp();
+  if (live) {
+    if (ia < D) x[s * D + ia] = xv[ia];
+    if (ib < D) x[s * D + ib] = xv[ib];
+  }
 }
 
-template <int TPS>
-int launch_chol_solve(const float* a, const float* b, float* x, int B, int D,
-                      cudaStream_t stream) {
-  constexpr int S = CS_THREADS / TPS;
-  const size_t smem = (size_t)S * (D * (D + 1) / 2 + 2 * D) * sizeof(float);
+template <int DP>
+int launch_chol_warp(const float* a, const float* b, float* x, int B, int D,
+                     cudaStream_t stream) {
+  using W = WarpSolve<DP>;
+  const size_t smem = (size_t)W::SPB * W::FLOATS * sizeof(float);
+  chol_solve_warp_kernel<DP><<<(B + W::SPB - 1) / W::SPB, CW_WARPS * 32,
+                               smem, stream>>>(a, b, x, B, D);
+  return (int)cudaGetLastError();
+}
+
+// K8 above D = 64: a block of DP threads a sample, DP = 128 or 256 (D
+// rounded up). The lower triangle is kept as CT x CT tiles, tile (i, k)
+// for k <= i at tile_at(i, k), each column-major with its rows XOR-swizzled
+// by column (swz), so that four consecutive rows of a column are one
+// float4 and a row or a column of a tile is read without bank conflicts.
+constexpr int CT = 32;   // tile side
+
+__device__ __forceinline__ int swz(int r, int c) {
+  return c * CT + (r ^ ((c & 7) << 2));
+}
+
+__device__ __forceinline__ int tile_at(int i, int k) {
+  return (i * (i + 1) / 2 + k) * CT * CT;
+}
+
+template <int DP>
+struct TileSolve {
+  static constexpr int NT = DP / CT;
+  static constexpr int TILES = NT * (NT + 1) / 2;
+  // shared floats: the tiles; r, y, L_jj and 1 / L_jj [DP] each; two
+  // column rows [2][CT]; the panel's pivots' 1 / sqrt [CT]
+  static constexpr int FLOATS = TILES * CT * CT + 4 * DP + 3 * CT;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(DP, 1)
+    chol_solve_tile_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           float* __restrict__ x, int D) {
+  using W = TileSolve<DP>;
+  constexpr int NT = W::NT, GROUPS = DP / 64;
+  extern __shared__ __align__(16) float sht[];
+  float* tiles = sht;
+  float* rv = tiles + W::TILES * CT * CT;   // r, for the rows not yet done
+  float* yv = rv + DP;
+  float* ld = yv + DP;
+  float* rcp = ld + DP;
+  float* cb = rcp + DP;   // [2][CT]: column j of the panel's diagonal tile
+  float* invs = cb + 2 * CT;
+  const int t = threadIdx.x;
+  const size_t s = blockIdx.x;
+  const float* as = a + s * D * D;
+
+  // L(i, k) = A[k][i] for i >= k (A's upper triangle, read along its
+  // rows, by 4-byte cp.async, all of them in flight at once); past D an
+  // identity; zero above the diagonal
+  for (int ib = 0; ib < NT; ++ib)
+    for (int kb = 0; kb <= ib; ++kb)
+      for (int e = t; e < CT * CT; e += DP) {
+        const int c = e / CT, r = e % CT;
+        const int i = ib * CT + r, k = kb * CT + c;
+        float* dst = tiles + tile_at(ib, kb) + swz(r, c);
+        if (i >= k && i < D)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           (uint32_t)__cvta_generic_to_shared(dst)),
+                       "l"(as + (size_t)k * D + i)
+                       : "memory");
+        else
+          *dst = i == k ? 1.f : 0.f;
+      }
+  rv[t] = t < D ? b[s * D + t] : 0.f;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  for (int p = 0; p < NT; ++p) {
+    // the panel, columns p CT .. p CT + CT - 1. Warp 0 factors its diagonal
+    // tile (lane t holds row p CT + t in registers, column jj goes to the
+    // warp through shared memory, one __syncwarp a column) with the
+    // forward substitution of those rows; then every row below it solves
+    // against that tile on its own
+    const int i = p * CT + t;
+    const bool row = i < DP;
+    float* ptile = tiles + tile_at(p, p);
+    if (t < CT) {
+      float pr[CT];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) pr[c] = ptile[swz(t, c)];
+      float r = rv[i];
+#pragma unroll
+      for (int jj = 0; jj < CT; ++jj) {
+        const int j = p * CT + jj;
+        float* cj = cb + (jj & 1) * CT;
+        const float ajj = __shfl_sync(FULL, pr[jj], jj);
+        const float inv = __frsqrt_rn(ajj);
+        const float ljj = __fmul_rn(ajj, inv);
+        const float rc = __frcp_rn(ljj);
+        pr[jj] = __fmul_rn(pr[jj], inv);
+        cj[t] = pr[jj];   // the entries at and above the diagonal: unread
+        const float yj = div_rn(__shfl_sync(FULL, r, jj), ljj, rc);
+        if (t == 0) {
+          yv[j] = yj;
+          ld[j] = ljj;
+          rcp[j] = rc;
+          invs[jj] = inv;
+        }
+        r = __fmaf_rn(-yj, pr[jj], r);   // a finished row's r is unread
+        __syncwarp();
+#pragma unroll
+        for (int q = (jj + 1) / 4; q < CT / 4; ++q) {
+          const float4 c4 = reinterpret_cast<const float4*>(cj)[q];
+          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = 4 * q + e;
+            if (kk <= jj) continue;
+            pr[kk] = __fmaf_rn(-pr[jj], cv[e], pr[kk]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CT; ++c) ptile[swz(t, c)] = pr[c];
+    }
+    __syncthreads();
+    if (t >= CT && row) {
+      // row i: L_ij = a_ij / L_jj's square root, then a_ik -= L_ij L_kj for
+      // the panel's columns k > j, and r_i -= y_j L_ij, j ascending
+      float* rt = tiles + tile_at(i / CT, p);
+      float pr[CT];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) pr[c] = rt[swz(i % CT, c)];
+      float r = rv[i];
+#pragma unroll
+      for (int jj = 0; jj < CT; ++jj) {
+        pr[jj] = __fmul_rn(pr[jj], invs[jj]);
+        r = __fmaf_rn(-yv[p * CT + jj], pr[jj], r);
+        const int sw = (jj & 7) << 2;
+#pragma unroll
+        for (int q = (jj + 1) / 4; q < CT / 4; ++q) {
+          const float4 c4 = *reinterpret_cast<const float4*>(
+              ptile + jj * CT + ((4 * q) ^ sw));
+          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = 4 * q + e;
+            if (kk <= jj) continue;
+            pr[kk] = __fmaf_rn(-pr[jj], cv[e], pr[kk]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CT; ++c) rt[swz(i % CT, c)] = pr[c];
+      rv[i] = r;
+    }
+    __syncthreads();
+
+    // trailing update of the tiles (ib, kb), p < kb <= ib: a group of 64
+    // threads a tile, a 4 x 4 register tile a thread, a[i][k] -= L_ij L_kj
+    // over the panel's columns j in ascending order
+    const int grp = t / 64, lt = t % 64;
+    const int r0 = 4 * (lt % 8), c0 = 4 * (lt / 8);
+    int u = 0;
+    for (int ib = p + 1; ib < NT; ++ib)
+      for (int kb = p + 1; kb <= ib; ++kb, ++u) {
+        if (u % GROUPS != grp) continue;
+        float* tt = tiles + tile_at(ib, kb);
+        const float* pi = tiles + tile_at(ib, p);
+        const float* pk = tiles + tile_at(kb, p);
+        float acc[4][4];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              tt + (c0 + cc) * CT + (r0 ^ (((c0 + cc) & 7) << 2)));
+          acc[cc][0] = v.x;
+          acc[cc][1] = v.y;
+          acc[cc][2] = v.z;
+          acc[cc][3] = v.w;
+        }
+#pragma unroll
+        for (int jj = 0; jj < CT; ++jj) {
+          const int sw = (jj & 7) << 2;
+          const float4 a4 =
+              *reinterpret_cast<const float4*>(pi + jj * CT + (r0 ^ sw));
+          const float4 b4 =
+              *reinterpret_cast<const float4*>(pk + jj * CT + (c0 ^ sw));
+          const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+            for (int rr = 0; rr < 4; ++rr)
+              acc[cc][rr] = __fmaf_rn(-av[rr], bv[cc], acc[cc][rr]);
+        }
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          *reinterpret_cast<float4*>(
+              tt + (c0 + cc) * CT + (r0 ^ (((c0 + cc) & 7) << 2))) =
+              make_float4(acc[cc][0], acc[cc][1], acc[cc][2], acc[cc][3]);
+      }
+    __syncthreads();
+  }
+
+  // back substitution L^T x = y on one warp (the padded rows solve to 0):
+  // lane l holds y and x of the rows l + CT m; x_j from row j's owner,
+  // then y_k -= x_j L_jk for the rows k < j (row j of L is row j % CT of
+  // the tiles (j / CT, m))
+  if (t < 32) {
+    float yr[NT], xr[NT];
+#pragma unroll
+    for (int m = 0; m < NT; ++m) {
+      yr[m] = yv[m * CT + t];
+      xr[m] = 0.f;
+    }
+#pragma unroll
+    for (int mb = NT - 1; mb >= 0; --mb)
+#pragma unroll
+      for (int jj = CT - 1; jj >= 0; --jj) {
+        const int j = mb * CT + jj;
+        const float xj =
+            div_rn(__shfl_sync(FULL, yr[mb], jj), ld[j], rcp[j]);
+        if (t == jj) xr[mb] = xj;
+#pragma unroll
+        for (int m = 0; m <= mb; ++m)
+          if (m * CT + t < j)
+            yr[m] = __fmaf_rn(-xj, tiles[tile_at(mb, m) + swz(jj, t)],
+                              yr[m]);
+      }
+#pragma unroll
+    for (int m = 0; m < NT; ++m)
+      if (m * CT + t < D) x[s * D + m * CT + t] = xr[m];
+  }
+}
+
+template <int DP>
+int launch_chol_tile(const float* a, const float* b, float* x, int B, int D,
+                     cudaStream_t stream) {
+  const size_t smem = (size_t)TileSolve<DP>::FLOATS * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chol_solve_kernel<TPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        chol_solve_tile_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  chol_solve_kernel<TPS><<<(B + S - 1) / S, CS_THREADS, smem, stream>>>(
-      a, b, x, B, D);
+  chol_solve_tile_kernel<DP><<<B, DP, smem, stream>>>(a, b, x, D);
   return (int)cudaGetLastError();
 }
 
@@ -310,10 +614,11 @@ int launch_chol_solve(const float* a, const float* b, float* x, int B, int D,
 extern "C" int chol_solve(const float* a, const float* b, float* x, int B,
                           int D, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 64) return launch_chol_solve<32>(a, b, x, B, D, st);
-  if (D <= 96) return launch_chol_solve<64>(a, b, x, B, D, st);
-  if (D <= 160) return launch_chol_solve<128>(a, b, x, B, D, st);
-  return launch_chol_solve<256>(a, b, x, B, D, st);
+  if (D <= 16) return launch_chol_warp<16>(a, b, x, B, D, st);
+  if (D <= 32) return launch_chol_warp<32>(a, b, x, B, D, st);
+  if (D <= 64) return launch_chol_warp<64>(a, b, x, B, D, st);
+  if (D <= 128) return launch_chol_tile<128>(a, b, x, B, D, st);
+  return launch_chol_tile<256>(a, b, x, B, D, st);
 }
 
 extern "C" const char* chol_error_string(int err) {

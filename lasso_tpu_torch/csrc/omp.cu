@@ -31,15 +31,27 @@
 //                    jnp.argmax and torch.argmax), applies the rss freeze
 //                    (rss = |r|^2 > tol, sklearn semantics), writes idx,
 //                    valid and the selected mask, gathers w = W[:, k*] from
-//                    W^T's contiguous row into shared memory, runs modified
-//                    Gram-Schmidt against the k live rows of Q (a dependent
-//                    chain of k length-D dot products, fused_omp.py:165-178),
-//                    applies the relative pivot floor
-//                    max(|w_perp|^2, 1e-12 |w|^2 + 1e-30), writes q_k,
-//                    column k of R and d_k = q_k . r, and updates r. A frozen
-//                    sample writes q_k = 0, R column e_k and d_k = 0
-//                    (fused_omp.py:186-193). With r it writes rb, r's
-//                    bf16x3 split, for the next step's K6a.
+//                    W^T's contiguous row, runs modified Gram-Schmidt
+//                    against the k live rows of Q (a dependent chain of k
+//                    length-D dot products, fused_omp.py:165-178), applies
+//                    the relative pivot floor max(|w_perp|^2, 1e-12 |w|^2 +
+//                    1e-30), writes q_k, column k of R and d_k = q_k . r,
+//                    and updates r. A frozen sample writes q_k = 0, R column
+//                    e_k and d_k = 0 (fused_omp.py:186-193). With r it
+//                    writes rb, r's bf16x3 split, for the next step's K6a.
+//                    For D a multiple of 128 up to 1024 (omp_orth_stream
+//                    _kernel<V>, V = D / 128) lane l owns the float4s 4 l +
+//                    128 m of every D-vector, and w and r stay in
+//                    registers (r is read once); the sample's live Q rows
+//                    stream into a ring of S rows of shared memory by bulk
+//                    copies (one a row, completing on the slot's mbarrier),
+//                    issued S rows ahead of the chain, so that Q's loads
+//                    never wait for it. Each row is read once from shared
+//                    memory, into registers that serve its dot product and
+//                    its update. Other D (and rows that are not 16-byte
+//                    aligned) take omp_orth_kernel<false>, which holds w
+//                    lane-strided in shared memory and reads each row of Q
+//                    from device memory, twice (K6d's template).
 //   K6d omp_orth_cgs2: K6b with the orthogonalisation of gs='cgs2'
 //                    (fused_omp.py:149-163): classical Gram-Schmidt in two
 //                    bulk passes, c1_t = q_t . w for all t < k, w -= sum
@@ -67,9 +79,11 @@
 // 32 KB of loads in flight an SM, too few for L2's latency, and bf16 took
 // nearly f32's time. So r's split is kept beside r and loaded by cp.async.
 // K6b at step k: its k N D 4 bytes of Q (about k x 0.010 ms; with r, its
-// split and the rest 0.358 ms averaged over the 64 steps); K6b keeps the
-// gathered atom in shared memory, lane-strided, so that Q is read once per
-// step, coalesced, and its chain of dot products needs only warp shuffles.
+// split and the rest 0.358 ms averaged over the 64 steps). Its chain of k
+// dot products, each reduced by warp shuffles, takes a few microseconds a
+// sample; with S rows of Q in flight a warp and 16-24 warps an SM, the
+// copies keep far more bytes in flight than the 25 KB an SM that Little's
+// law asks at 3.35 TB/s, so the streamed kernel is bound by Q's bytes.
 // K6d has the same bound and reads the k rows four times (two per pass),
 // from L2 where they are still there.
 //
@@ -81,6 +95,7 @@
 #include <climits>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 #include "wgmma_product.cuh"
 
@@ -373,6 +388,199 @@ __global__ void __launch_bounds__(OWARPS * 32)
   }
 }
 
+// K6b for D = 128 V, V <= 8: step k of one warp's sample, w and r in
+// registers (lane l owns the float4s l + 32 m of a row), the live rows of
+// Q through a ring of S rows in shared memory (the warp's S D floats,
+// then its S mbarriers after all the block's rings).
+constexpr int SWARPS = 4;   // samples (one warp each) per streamed block
+
+// one row of Q into the ring: one arrival on the slot's barrier expecting
+// its bytes, and the bulk copy that completes them
+__device__ __forceinline__ void bulk_row(uint32_t dst, const float* src,
+                                         uint32_t bytes, uint32_t bar) {
+  wgp::mbar_expect_tx(bar, bytes);
+  wgp::bulk_copy(dst, src, bytes, bar);
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+template <int V>
+__global__ void __launch_bounds__(SWARPS * 32)
+    omp_orth_stream_kernel(const float* __restrict__ pval,
+                           const int* __restrict__ pidx, int nK,
+                           const float* __restrict__ wt,
+                           float* __restrict__ r, float* __restrict__ q,
+                           float* __restrict__ R, float* __restrict__ d,
+                           int* __restrict__ idx, float* __restrict__ valid,
+                           float* __restrict__ active,
+                           unsigned char* __restrict__ sel,
+                           __nv_bfloat16* __restrict__ rb, float tol, int k,
+                           int N, int K, int T, int S) {
+  constexpr int D = 128 * V;
+  extern __shared__ __align__(16) unsigned char osm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x * SWARPS + warp;
+  if (n >= N) return;   // the whole warp leaves together
+  const uint32_t ring =
+      wgp::smem_addr(osm) + (uint32_t)(warp * S * D * sizeof(float));
+  const uint32_t bars = wgp::smem_addr(osm) +
+                        (uint32_t)(SWARPS * S * D * sizeof(float)) +
+                        8u * (uint32_t)(warp * S);
+  const float* ring_f =
+      reinterpret_cast<const float*>(osm) + (size_t)warp * S * D;
+
+  // r, read once; the tol freeze on its square
+  float4 rv[V];
+  const float4* r4 = reinterpret_cast<const float4*>(r + (size_t)n * D);
+  float rss = 0.f;
+#pragma unroll
+  for (int m = 0; m < V; ++m) {
+    rv[m] = r4[lane + 32 * m];
+    rss = dot4(rv[m], rv[m], rss);
+  }
+  rss = warp_sum(rss);
+  const bool act = active[n] > 0.f && rss > tol;
+
+  // the first S live rows of Q on their way, before anything else waits
+  const float* qn = q + (size_t)n * T * D;
+  if (act && lane == 0) {
+    for (int i = 0; i < S; ++i) wgp::mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < S && t < k; ++t)
+      bulk_row(ring + (uint32_t)(t * D * sizeof(float)), qn + (size_t)t * D,
+               D * sizeof(float), bars + 8 * t);
+  }
+
+  // the first maximum over the row's column-tile partials
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int b = lane; b < nK; b += 32)
+    better(bv, bi, pval[(size_t)n * nK + b], pidx[(size_t)n * nK + b]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    better(bv, bi, ov, oi);
+  }
+  const int kstar = (bi >= 0 && bi < K) ? bi : 0;
+
+  const size_t slot = (size_t)n * T + k;
+  float4* qk4 = reinterpret_cast<float4*>(q + slot * D);
+  float* Rk = R + slot * T;   // column k of R
+  if (lane == 0) {
+    idx[slot] = act ? kstar : 0;
+    valid[slot] = act ? 1.f : 0.f;
+    active[n] = act ? 1.f : 0.f;
+    if (act) sel[(size_t)n * K + kstar] = 1;
+  }
+  if (!act) {
+#pragma unroll
+    for (int m = 0; m < V; ++m)
+      qk4[lane + 32 * m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = lane; t <= k; t += 32) Rk[t] = t == k ? 1.f : 0.f;
+    if (lane == 0) d[slot] = 0.f;
+    return;
+  }
+
+  // gather the atom into registers
+  const float4* w4 = reinterpret_cast<const float4*>(wt + (size_t)kstar * D);
+  float4 wv[V];
+  float w0n = 0.f;
+#pragma unroll
+  for (int m = 0; m < V; ++m) {
+    wv[m] = w4[lane + 32 * m];
+    w0n = dot4(wv[m], wv[m], w0n);
+  }
+  w0n = warp_sum(w0n);
+  __syncwarp();   // the barriers' initialisation, for every lane
+
+  // modified Gram-Schmidt: a t-chain over the ring
+  int ts = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < k; ++t) {
+    wgp::mbar_wait(bars + 8 * ts, phase);
+    const float4* row = reinterpret_cast<const float4*>(ring_f + ts * D);
+    float4 qv[V];
+    float cf = 0.f;
+#pragma unroll
+    for (int m = 0; m < V; ++m) {
+      qv[m] = row[lane + 32 * m];
+      cf = dot4(qv[m], wv[m], cf);
+    }
+    __syncwarp();   // every lane has read the slot: refill it
+    if (lane == 0 && t + S < k) {
+      wgp::fence_proxy_async();
+      bulk_row(ring + (uint32_t)(ts * D * sizeof(float)),
+               qn + (size_t)(t + S) * D, D * sizeof(float), bars + 8 * ts);
+    }
+    cf = warp_sum(cf);
+#pragma unroll
+    for (int m = 0; m < V; ++m) {
+      wv[m].x = __fsub_rn(wv[m].x, __fmul_rn(cf, qv[m].x));
+      wv[m].y = __fsub_rn(wv[m].y, __fmul_rn(cf, qv[m].y));
+      wv[m].z = __fsub_rn(wv[m].z, __fmul_rn(cf, qv[m].z));
+      wv[m].w = __fsub_rn(wv[m].w, __fmul_rn(cf, qv[m].w));
+    }
+    if (lane == 0) Rk[t] = cf;
+    if (++ts == S) {
+      ts = 0;
+      phase ^= 1u;
+    }
+  }
+  float nrm2 = 0.f;
+#pragma unroll
+  for (int m = 0; m < V; ++m) nrm2 = dot4(wv[m], wv[m], nrm2);
+  nrm2 = warp_sum(nrm2);
+  const float pivot =
+      fmaxf(nrm2, __fadd_rn(__fmul_rn(1e-12f, w0n), 1e-30f));
+  const float inv = __frsqrt_rn(pivot);
+
+  // q_k, d_k = q_k . r and r -= d_k q_k, with r's split
+  float dk = 0.f;
+#pragma unroll
+  for (int m = 0; m < V; ++m) {
+    wv[m] = make_float4(__fmul_rn(wv[m].x, inv), __fmul_rn(wv[m].y, inv),
+                        __fmul_rn(wv[m].z, inv), __fmul_rn(wv[m].w, inv));
+    qk4[lane + 32 * m] = wv[m];
+    dk = dot4(wv[m], rv[m], dk);
+  }
+  dk = warp_sum(dk);
+  float4* rn4 = reinterpret_cast<float4*>(r + (size_t)n * D);
+  uint2* hi2 = reinterpret_cast<uint2*>(rb + (size_t)n * D);
+  uint2* lo2 = reinterpret_cast<uint2*>(rb + (size_t)N * D + (size_t)n * D);
+#pragma unroll
+  for (int m = 0; m < V; ++m) {
+    const float4 v = make_float4(
+        __fsub_rn(rv[m].x, __fmul_rn(dk, wv[m].x)),
+        __fsub_rn(rv[m].y, __fmul_rn(dk, wv[m].y)),
+        __fsub_rn(rv[m].z, __fmul_rn(dk, wv[m].z)),
+        __fsub_rn(rv[m].w, __fmul_rn(dk, wv[m].w)));
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(
+        __fsub_rn(v.x, __low2float(h01)), __fsub_rn(v.y, __high2float(h01)));
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(
+        __fsub_rn(v.z, __low2float(h23)), __fsub_rn(v.w, __high2float(h23)));
+    rn4[lane + 32 * m] = v;
+    hi2[lane + 32 * m] =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
+                   *reinterpret_cast<const uint32_t*>(&h23));
+    lo2[lane + 32 * m] =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
+                   *reinterpret_cast<const uint32_t*>(&l23));
+  }
+  if (lane == 0) {
+    Rk[k] = __fsqrt_rn(pivot);
+    d[slot] = dk;
+  }
+}
+
 // K6c: R z = d by columns, j = T-1 .. 0; rhs is the warp's [T] slice of
 // shared memory. A frozen slot has R column e_j and d_j = 0, so it solves
 // to exactly 0.
@@ -443,6 +651,33 @@ int launch_orth(const float* pval, const int* pidx, int nK, const float* wt,
   return (int)cudaGetLastError();
 }
 
+// the ring's depth: S rows of D floats a warp, about 8 KB, 2 to 8 rows
+inline int stream_ring_rows(int D) {
+  const int s = 8192 / (D * (int)sizeof(float));
+  return s < 2 ? 2 : s > 8 ? 8 : s;
+}
+
+template <int V>
+int launch_orth_stream(const float* pval, const int* pidx, int nK,
+                       const float* wt, float* r, float* q, float* R,
+                       float* d, int* idx, float* valid, float* active,
+                       unsigned char* sel, __nv_bfloat16* rb, float tol,
+                       int k, int N, int K, int T, void* stream) {
+  const int S = stream_ring_rows(128 * V);
+  const size_t smem = (size_t)SWARPS * S * (128 * V * sizeof(float) + 8);
+  const int e = smem_opt_in(omp_orth_stream_kernel<V>, smem);
+  if (e != 0) return e;
+  omp_orth_stream_kernel<V><<<(N + SWARPS - 1) / SWARPS, SWARPS * 32, smem,
+                              (cudaStream_t)stream>>>(
+      pval, pidx, nK, wt, r, q, R, d, idx, valid, active, sel, rb, tol, k, N,
+      K, T, S);
+  return (int)cudaGetLastError();
+}
+
+#define LAUNCH_STREAM(V)                                                   \
+  launch_orth_stream<V>(pval, pidx, nK, wt, r, q, R, d, idx, valid, active, \
+                        sel, rb, tol, k, N, K, T, stream)
+
 }  // namespace
 
 // rb [2, N, D] bf16, the split of r (hi, lo); wt_hi, wt_lo [K, D] bf16,
@@ -477,8 +712,21 @@ extern "C" int omp_orth(const float* pval, const int* pidx, int nK,
                         float* d, int* idx, float* valid, float* active,
                         unsigned char* sel, __nv_bfloat16* rb, float tol,
                         int k, int N, int D, int K, int T, void* stream) {
-  return launch_orth<false>(pval, pidx, nK, wt, r, q, R, d, idx, valid,
-                            active, sel, rb, tol, k, N, D, K, T, stream);
+  const bool aligned = ((uintptr_t)wt | (uintptr_t)r | (uintptr_t)q |
+                        (uintptr_t)rb) % 16 == 0;
+  if (!aligned || D % 128 != 0 || D > 1024)
+    return launch_orth<false>(pval, pidx, nK, wt, r, q, R, d, idx, valid,
+                              active, sel, rb, tol, k, N, D, K, T, stream);
+  switch (D / 128) {
+    case 1: return LAUNCH_STREAM(1);
+    case 2: return LAUNCH_STREAM(2);
+    case 3: return LAUNCH_STREAM(3);
+    case 4: return LAUNCH_STREAM(4);
+    case 5: return LAUNCH_STREAM(5);
+    case 6: return LAUNCH_STREAM(6);
+    case 7: return LAUNCH_STREAM(7);
+    default: return LAUNCH_STREAM(8);
+  }
 }
 
 // omp_orth with two-pass classical Gram-Schmidt (gs='cgs2')

@@ -27,8 +27,10 @@ of PD systems ``A_s x_s = b_s`` (b ``[B, D]``, A ``[B, D, D]``, D <= 256)
 by the column recurrence with ``rsqrt`` of each pivot, then forward and
 back substitution, in PyTorch's own ``[B, D, D]`` layout (the TPU kernel's
 ``[D, D, B]`` transpose and its padding of B exist only for the TPU's
-lanes). It has no pivot floor: a non-PD system gives a non-finite x, which
-sends the caller's batch to an LU solve
+lanes). Up to D = 64 a sample belongs to part of one warp, which holds its
+factor in registers; above, to a block of 128 or 256 threads with the
+factor as 32 x 32 tiles in shared memory. It has no pivot floor: a non-PD
+system gives a non-finite x, which sends the caller's batch to an LU solve
 (:func:`lasso_tpu_torch.linalg.batch_cholesky_solve`).
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
@@ -126,8 +128,9 @@ def cholesky_append_solve_lanes_plain(L, g_row, b, k):
     return V, z
 
 
-# K8 keeps a sample's packed lower triangle and two vectors in shared memory:
-# (D (D + 1) / 2 + 2 D) floats, 133.6 KB at D = 256
+# K8 solves D <= 64 with a warp's registers (the factor's rows) and above
+# keeps a sample's lower triangle as 32 x 32 tiles in shared memory, 151.8
+# KB at D = 256
 _MAX_D = 256
 
 

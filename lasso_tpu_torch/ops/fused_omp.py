@@ -27,7 +27,8 @@ of ``csrc/omp.cu`` from the host, then one back-substitution:
   row and 128-atom tile;
 * :func:`omp_orth` (K6b, or K6d with ``gs='cgs2'``): the partials' first
   maximum, the freeze, the atom gather, Gram-Schmidt, ``q_k``, R,
-  ``d_k`` and the residual update;
+  ``d_k`` and the residual update (K6b up to D = 1024 streams the live
+  rows of Q through shared memory by bulk copies, ahead of its chain);
 * :func:`omp_backsub` (K6c): ``R z = d``.
 
 Each entry launches its kernel on a CUDA tensor (or raises) and runs its
@@ -66,16 +67,18 @@ OMP_ORTH = {"mgs": _cuda.CudaKernel("omp", "omp_orth", _ORTH_ARGS),
 OMP_BACKSUB = _cuda.CudaKernel("omp", "omp_backsub", [_P] * 4 + [_I] * 2
                                + [_P])
 TILE = 128        # atoms per partial: BN of csrc/wgmma_product.cuh
-_WARPS = 8        # samples per K6b block, each with a [D] row in shared memory
-_MAX_D = 227 * 1024 // (_WARPS * 4)   # floats a K6b warp may hold
+# K6d (and K6b past D = 1024) keeps a [D] row for each of the 8 samples of
+# a block in shared memory; K6b up to D = 1024 keeps w and r in registers
+_WARPS = 8
+_MAX_D = 227 * 1024 // (_WARPS * 4)   # floats such a warp may hold
 
 
 def supports_fused_omp(N, D, K, T, dtype):
     """Shapes the fused path takes: float32 and D, K multiples of 128, as
     in the JAX package (so that its pad route and its routing are the
-    same), and D within K6b's shared memory (a [D] row for each of 8
-    samples). The TPU's VMEM term has no counterpart: the state lives in
-    device memory."""
+    same), and D within the shared memory of the warp-strided K6b that
+    takes D past 1024 (a [D] row for each of 8 samples). The TPU's VMEM
+    term has no counterpart: the state lives in device memory."""
     return (dtype == torch.float32 and D % 128 == 0 and K % 128 == 0
             and D <= _MAX_D)
 

@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""Time the batched Cholesky solve K8 (``batch_cholesky_solve_lanes``) and
+the fused OMP step K6b (``omp_orth``) on one CUDA card, for this checkout
+and, with ``--other DIR``, for another checkout of the repository (for
+example the parent commit unpacked with ``git archive``).
+
+    python3 scripts/chol_omp_timing.py [--other DIR] [--ptxas]
+
+Each tree runs in a process of its own (both packages are named
+``lasso_tpu_torch``), in the order other, this, this, other, so that the
+two are compared on one card in turns. A process builds its tree's ``omp``
+and ``chol`` libraries (``--ptxas``: and prints what ptxas says of each
+kernel), then:
+
+* K8 at B=16384, D=64 (OMP 'chol-full' at T=64) and B=1024, D=256 (the
+  gate's limit), on A = Q Q^T + 2 I: x held to the plain version at rtol
+  1e-4 / atol 1e-5, and the mean of 20 launches after 3 by CUDA events,
+  behind about 20 ms of queued work;
+* one fused OMP solve at benchmarks/omp_fused_bench.py's problem
+  (16384x512->2048, T=64, f32), with events around every launch: K6b's
+  mean over the 64 steps and its time at steps 0, 32 and 63, K6a's mean;
+  the same with ``gs='cgs2'`` for K6d's mean; K6b at step 32 held to its
+  plain version from one state (idx, valid and the masks equal; r, q_k,
+  R's column, d_k and r's split at rtol 2e-4 / atol 1e-5);
+* solves/s of ``sparse_encode(algorithm='omp', n_nonzero_coefs=64)`` (the
+  fused route) and of the same with ``solver='chol-full'`` (K8 once a
+  step), the best of two solves after one warm-up.
+
+It prints one JSON line a process; the parent prints the card's name and
+power limit and a summary line last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, D, K, T = 16384, 512, 2048, 64        # benchmarks/omp_fused_bench.py
+CHOL_SHAPES = ((16384, 64), (1024, 256))
+
+
+def measure(root, label, ptxas):
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from lasso_tpu_torch.linear import sparse_encode
+    from lasso_tpu_torch.ops import _cuda
+    from lasso_tpu_torch.ops import batched_cholesky as B
+    from lasso_tpu_torch.ops import fused_omp as O
+
+    logs = _cuda.build(["omp", "chol"], ptxas_verbose=ptxas)
+    for line in "".join(logs.values()).splitlines():
+        if ptxas and ("registers" in line or "spill" in line
+                      or "Compiling" in line):
+            print(f"[{label}] ptxas: {line.strip()}")
+    dev = torch.device("cuda")
+    out = {"tree": label}
+
+    def hold_the_card():
+        a = torch.full((8192, 8192), 1e-3, device=dev)
+        torch.matmul(a, a)
+
+    def cuda_ms(fn, reps=20, warm=3):
+        for _ in range(warm):
+            fn()
+        hold_the_card()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def worst(a, c, rtol):
+        return float(((a - c).abs() - rtol * c.abs()).max())
+
+    ok = True
+    for b_, d_ in CHOL_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(b_ + d_)
+        Q = torch.randn(b_, d_, d_, generator=g, device=dev)
+        A = Q @ Q.transpose(1, 2) + 2 * torch.eye(d_, device=dev)
+        b = torch.randn(b_, d_, generator=g, device=dev)
+        del Q
+        x = B.batch_cholesky_solve_lanes(b, A)
+        torch.cuda.synchronize()
+        e = worst(x, B.batch_cholesky_solve_lanes_plain(b, A), 1e-4)
+        ok &= e <= 1e-5 and bool(torch.isfinite(x).all())
+        out[f"chol_solve_{b_}x{d_}_ms"] = cuda_ms(
+            lambda: B.batch_cholesky_solve_lanes(b, A))
+        out[f"chol_solve_{b_}x{d_}_excess"] = e
+        del A, b, x
+
+    rng = np.random.default_rng(0)
+    W_np = rng.standard_normal((D, K)).astype(np.float32)
+    W_np /= np.linalg.norm(W_np, axis=0, keepdims=True)
+    x_np = rng.standard_normal((N, D)).astype(np.float32)
+    x, W = torch.from_numpy(x_np).to(dev), torch.from_numpy(W_np).to(dev)
+    invn, wt = O.inverse_norms(W), W.T.contiguous()
+    wsplit = O.select_operands(W)
+    for gs in ("mgs", "cgs2"):
+        O.fused_omp_solve(x[:256], W, 4, gs=gs)   # load the kernels first
+        state = O.omp_init_state(x, K, T)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * T + 1)]
+        hold_the_card()
+        for k in range(T):
+            ev[2 * k].record()
+            O.omp_select(state, wsplit, invn)
+            ev[2 * k + 1].record()
+            O.omp_orth(state, wt, k, gs=gs)
+        ev[2 * T].record()
+        torch.cuda.synchronize()
+        orth = [ev[2 * k + 1].elapsed_time(ev[2 * k + 2]) for k in range(T)]
+        name = "omp_orth" if gs == "mgs" else "omp_orth_cgs2"
+        out[f"{name}_mean_ms"] = sum(orth) / T
+        if gs == "mgs":
+            out["omp_orth_steps_ms"] = {s: orth[s] for s in (0, 32, T - 1)}
+            out["omp_select_f32_mean_ms"] = sum(
+                ev[2 * k].elapsed_time(ev[2 * k + 1]) for k in range(T)) / T
+        del state
+    # K6b at step 32 from one state against its plain version
+    st = O.omp_init_state(x, K, T)
+    for k in range(32):
+        O.omp_select(st, wsplit, invn)
+        O.omp_orth(st, wt, k)
+    O.omp_select(st, wsplit, invn)
+    twin = O.OmpState(**{f: getattr(st, f).clone()
+                         for f in st.__dataclass_fields__})
+    O.omp_orth(st, wt, 32)
+    O.omp_orth_plain(twin, wt, 32)
+    exact = all(torch.equal(a, c) for a, c in (
+        (st.idx[:, 32], twin.idx[:, 32]), (st.valid[:, 32], twin.valid[:, 32]),
+        (st.active, twin.active), (st.sel, twin.sel)))
+    e = max(worst(a, c, 2e-4) for a, c in (
+        (st.r, twin.r), (st.Q[:, 32], twin.Q[:, 32]),
+        (st.R[:, 32, :33], twin.R[:, 32, :33]), (st.d[:, 32], twin.d[:, 32]),
+        (st.rb.float().sum(0), twin.rb.float().sum(0))))
+    ok &= exact and e <= 1e-5
+    out["omp_orth_step32_excess"], out["omp_orth_step32_exact"] = e, exact
+    del st, twin
+
+    for key, kw in (("fused", {}), ("chol_full", {"solver": "chol-full"})):
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sparse_encode(x, W, algorithm="omp", n_nonzero_coefs=T, **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out[f"omp_{key}_solves_per_s"] = 1 / min(secs[1:])
+    out["ok"] = ok
+    print(json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="another checkout of the repository")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print ptxas's register and spill lines")
+    ap.add_argument("--one", nargs=2, metavar=("ROOT", "LABEL"),
+                    help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.one:
+        measure(os.path.abspath(a.one[0]), a.one[1], a.ptxas)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("chol_omp_timing: no CUDA device", file=sys.stderr)
+        return 1
+    order = [(HERE, "this")]
+    if a.other:
+        other = os.path.abspath(a.other)
+        order = [(other, "other"), (HERE, "this"), (HERE, "this"),
+                 (other, "other")]
+    rows = []
+    for i, (root, label) in enumerate(order):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", root, label]
+            + (["--ptxas"] if a.ptxas and i < 2 else []),
+            capture_output=True, text=True, timeout=900)
+        sys.stdout.write(out.stdout)
+        if out.returncode != 0:
+            sys.stderr.write(out.stderr)
+            return out.returncode
+        rows += [json.loads(line) for line in out.stdout.splitlines()
+                 if line.startswith("{")]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    summary = {}
+    for r in rows:
+        for key, v in r.items():
+            if key.endswith(("_ms", "_per_s")) and not isinstance(v, dict):
+                summary.setdefault(key, {}).setdefault(r["tree"], []).append(
+                    round(v, 4))
+    print(json.dumps({"summary": summary,
+                      "ok": all(r["ok"] for r in rows)}))
+    return 0 if all(r["ok"] for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

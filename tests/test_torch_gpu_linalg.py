@@ -37,11 +37,15 @@ def pd_systems(seed, B, D):
 
 
 @pytest.mark.parametrize("B,D", [(300, 64), (130, 12), (130, 100), (9, 161),
-                                 (5, 256), (1, 1)])
+                                 (5, 256), (1, 1), (17, 16), (5, 17),
+                                 (33, 32), (301, 63), (130, 65)])
 def test_chol_solve_kernel_matches_plain(B, D):
-    """Every thread-group width of K8 (32 threads a sample up to D = 64,
-    64, 128, then 256 above D = 160), batches that leave a block part
-    empty: x at rtol 1e-4 / atol 1e-5 from the plain version."""
+    """Every tier of K8: the warp kernel at D rounded up to 16, 32 and 64
+    (16, 8 and 4 samples a block; D = 1, 16 / 17, 32 / 33, 63, 64 on both
+    sides of each width, rows past D padded as an identity), then the
+    thread groups of 64, 128 and 256 above D = 64; batches that leave a
+    block part empty: x at rtol 1e-4 / atol 1e-5 from the plain
+    version."""
     _need_card()
     b, A = pd_systems(B + D, B, D)
     before = T_B.CHOL_SOLVE.launches
@@ -70,6 +74,23 @@ def test_non_pd_sample_and_the_lu_fallback():
     np.testing.assert_allclose(n(got), n(lu), atol=1e-4)
     assert (_cuda.WRAPPER_CALLS["batch_cholesky_solve_lu"]
             - before.get("batch_cholesky_solve_lu", 0)) == 1
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_non_pd_sample_in_a_shared_warp(D):
+    """Where a warp holds several samples (4 at D = 16, 2 at D = 32), a
+    non-PD sample gives a non-finite x and leaves its neighbours in the
+    warp, and every other sample, as the plain version solves them."""
+    _need_card()
+    b, A = pd_systems(D, 37, D)
+    A[5] = -torch.eye(D, device="cuda")
+    x = T_B.batch_cholesky_solve_lanes(b, A)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(x[5]).any())
+    good = torch.ones(37, dtype=torch.bool, device="cuda")
+    good[5] = False
+    want = T_B.batch_cholesky_solve_lanes_plain(b[good], A[good])
+    np.testing.assert_allclose(n(x[good]), n(want), rtol=1e-4, atol=1e-5)
 
 
 def test_chol_solve_refuses_what_it_does_not_take():

@@ -1,6 +1,7 @@
 """lasso_tpu_torch's fused OMP kernels on a CUDA card: K6a ``omp_select``
-on the tensor cores and K6d ``omp_orth_cgs2`` (the ``gs='cgs2'`` step)
-against their plain versions, and the launches of a cgs2 solve.
+on the tensor cores, K6b ``omp_orth`` (the streamed kernel and, past D =
+1024, the warp-strided one) and K6d ``omp_orth_cgs2`` (the ``gs='cgs2'``
+step) against their plain versions, and the launches of a cgs2 solve.
 
 Every test here is marked ``gpu`` and skips where there is no card. This
 file imports neither JAX nor the JAX package; on a machine that has only
@@ -95,6 +96,62 @@ def test_select_refuses_what_it_does_not_take():
     hi, lo = T_O.select_operands(W)
     with pytest.raises(ValueError, match="bfloat16"):
         T_O.omp_select(state, (hi.float(), lo), T_O.inverse_norms(W))
+
+
+@pytest.mark.parametrize("N,D,T,tol", [(1001, 128, 13, 1e-6),
+                                       (130, 768, 8, None),
+                                       (67, 1024, 6, None),
+                                       (70, 1152, 4, None)])
+def test_orth_kernel_matches_plain(N, D, T, tol):
+    """K6b against its plain version at every step of a solve, each step
+    from one state (idx, valid and the masks equal; r, its kept split,
+    q_k, R's column and d_k at rtol 2e-4 / atol 1e-5). The streamed
+    kernel's ring holds 8 rows at D = 128 and 2 from D = 768 on, so the
+    later steps refill it; D = 1024 is its widest row, D = 1152 takes the
+    warp-strided kernel; N is ragged. Atoms 0 and 1 are both e_0, and rows
+    0-7 are 3 e_0: step 0 takes atom 0 and leaves r = 0, so step 1 takes
+    the duplicate, whose Gram-Schmidt remainder is exactly 0 and hits the
+    pivot floor (R's diagonal 1e-6). With tol, rows 0-7 freeze at step 1
+    instead, and rows 8-15, 3-sparse, by step 4."""
+    _need_card()
+    K = 256
+    x, W = omp_problem(N + D, N, D, K)
+    W[:, :2] = 0.0
+    W[0, :2] = 1.0
+    z = np.zeros((8, K), np.float32)
+    z[:, 4:7] = np.random.default_rng(D).standard_normal((8, 3))
+    x[:8] = 0.0
+    x[:8, 0] = 3.0
+    x[8:16] = z @ W.T
+    xc, Wc = t(x).cuda(), t(W).cuda()
+    wsplit, invn = T_O.select_operands(Wc), T_O.inverse_norms(Wc)
+    wt = Wc.T.contiguous()
+    st = T_O.omp_init_state(xc, K, T)
+    before = T_O.OMP_ORTH["mgs"].launches
+    for k in range(T):
+        T_O.omp_select(st, wsplit, invn)
+        twin = T_O.OmpState(**{f: getattr(st, f).clone()
+                               for f in st.__dataclass_fields__})
+        T_O.omp_orth(st, wt, k, tol)
+        T_O.omp_orth_plain(twin, wt, k, tol)
+        for a, c in ((st.idx[:, k], twin.idx[:, k]), (st.sel, twin.sel),
+                     (st.valid[:, k], twin.valid[:, k]),
+                     (st.active, twin.active)):
+            assert torch.equal(a, c)
+        for a, c in ((st.r, twin.r), (st.Q[:, k], twin.Q[:, k]),
+                     (st.R[:, k, :k + 1], twin.R[:, k, :k + 1]),
+                     (st.d[:, k], twin.d[:, k]),
+                     (st.rb.float().sum(0), twin.rb.float().sum(0))):
+            np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
+    assert T_O.OMP_ORTH["mgs"].launches - before == T
+    assert bool((st.idx[:8, 0] == 0).all())
+    if tol is None:
+        assert bool((st.idx[:8, 1] == 1).all())
+        np.testing.assert_allclose(n(st.R[:8, 1, 1]), 1e-6, rtol=1e-6)
+        assert not bool(st.Q[:8, 1].any())
+    else:   # r = 0 after step 0: rows 0-7 freeze at step 1
+        assert not bool(st.valid[:8, 1:].any())
+        assert not bool(st.valid[8:16, 4:].any())
 
 
 @pytest.mark.parametrize("T", [13, 64])
