@@ -49,9 +49,9 @@ before the last line is printed.
    equal); ``fused_cd_mod_sweep`` with converged rows and a zero atom (z
    and R atol 1e-4 after one sweep, zmax and dzmax rtol 1e-5) against its
    plain version at the kernel's 16-atom chunk. Then both alone at the
-   headline shape, timed beside their plain versions, and K4 also at the
-   training width (16384x(256->1024)), each width a row of its own with
-   the bound of K4's FP32 FFMA route.
+   headline shape, timed beside their plain versions, and K3 and K4 also
+   at the training width (16384x(256->1024)), each width a row of its own
+   (K4's with the bound of its FP32 FFMA route).
 6. Training through the CLI at the training width (N=16384, D=256 ->
    K=1024, alpha=0.1; signals drawn from a sparse model over a random
    dictionary): ``python -m lasso_tpu_torch train --steps 3
@@ -704,46 +704,56 @@ def phase_cd_kernels():
 
     # alone at the headline shape; all rows active
     o = cd_operands(N, D, K, seed=1)
-    ones = torch.ones_like(o["act"])
     none = torch.zeros_like(o["conv"])
     n_atoms = int((o["nrm"] != 0).sum())
     for kp in ("f32", "bf16"):
-        step_args = (o["b"], o["z"], ones, o["S"], 0.2, 0.0)
-        got = C.fused_cd_steps(*step_args, steps=8, kernel_precision=kp)
-        torch.cuda.synchronize()
-        want = C.fused_cd_steps_plain(*step_args, steps=8,
-                                      kernel_precision=kp)
-        err = max(float((a - b).abs().max())
-                  for a, b in zip(got[:2], want[:2]))
-        check(err <= 1e-6, f"cd_steps {kp} at the headline shape")
-        # bytes: b and z in and out, the mask in and out, S once; the
-        # operations (about 7 per entry and step) take 0.03 ms
-        nbytes = 4 * (4 * N * K + 2 * N) + (4 if kp == "f32" else 2) * K * K
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 8 * N * K * 7 / PEAK_FLOPS["f32"] * 1e3
-        rows[f"cd_steps_{kp}"] = {
-            "name": f"cd_steps_{kp}", "route": "cuda", "source": CD_SOURCE,
-            "replaces": CD_REPLACES["cd_steps"], "launches": None,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: C.fused_cd_steps(
-                *step_args, steps=8, kernel_precision=kp)),
-            "plain_ms": cuda_ms(lambda: C.fused_cd_steps_plain(
-                *step_args, steps=8, kernel_precision=kp), reps=5),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
-        print(f"[5] {json.dumps(rows[f'cd_steps_{kp}'])} (8 steps a launch; "
-              f"no PyTorch call computes a greedy CD step: library null)")
+        rows[f"cd_steps_{kp}"] = cd_steps_row(o, N, D, K, kp)
     sweep_args = (o["z0"], o["R"], none, o["W"], o["nrm"], 0.1)
     rows["cd_mod_sweep"] = cd_mod_sweep_row(sweep_args, N, D, n_atoms)
     del o, sweep_args
-    # and at the training width (phase 7's dict_learning)
+    # and at the training width (phase 6's E-steps, phase 7's
+    # dict_learning)
     o = cd_operands(TRAIN_N, TRAIN_D, TRAIN_K, seed=2)
+    for kp in ("f32", "bf16"):
+        rows[f"cd_steps_{kp}_train"] = cd_steps_row(o, TRAIN_N, TRAIN_D,
+                                                    TRAIN_K, kp)
     sweep_args = (o["z0"], o["R"], torch.zeros_like(o["conv"]), o["W"],
                   o["nrm"], 0.1)
     rows["cd_mod_sweep_train"] = cd_mod_sweep_row(
         sweep_args, TRAIN_N, TRAIN_D, int((o["nrm"] != 0).sum()))
     return rows
+
+
+def cd_steps_row(o, n, d, k, kp):
+    """K3 alone on every row of ``cd_operands`` (all active, alpha 0.2, tol
+    0, 8 steps) against its plain version (atol 1e-6, the active mask
+    equal), timed, with its bound: the bytes of b and z in and out, the
+    mask in and out and S once (the operations, about 7 per entry and
+    step, take less)."""
+    step_args = (o["b"], o["z"], torch.ones_like(o["act"]), o["S"], 0.2, 0.0)
+    got = C.fused_cd_steps(*step_args, steps=8, kernel_precision=kp)
+    torch.cuda.synchronize()
+    want = C.fused_cd_steps_plain(*step_args, steps=8, kernel_precision=kp)
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    check(err <= 1e-6 and bool(torch.equal(got[2], want[2])),
+          f"cd_steps {kp} at {n}x{d}->{k}")
+    nbytes = 4 * (4 * n * k + 2 * n) + (4 if kp == "f32" else 2) * k * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * n * k * 7 / PEAK_FLOPS["f32"] * 1e3
+    row = {
+        "name": f"cd_steps_{kp}", "shape": f"{n}x{d}->{k}", "route": "cuda",
+        "source": CD_SOURCE, "replaces": CD_REPLACES["cd_steps"],
+        "launches": None, "max_abs_err": err,
+        "ms": cuda_ms(lambda: C.fused_cd_steps(*step_args, steps=8,
+                                               kernel_precision=kp)),
+        "plain_ms": cuda_ms(lambda: C.fused_cd_steps_plain(
+            *step_args, steps=8, kernel_precision=kp), reps=5),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None}
+    print(f"[5] {json.dumps(row)} (8 steps a launch; no PyTorch call "
+          f"computes a greedy CD step: library null)")
+    return row
 
 
 def cd_mod_sweep_row(sweep_args, n, d, n_atoms):
@@ -2508,8 +2518,10 @@ def main():
     cd_rows = phase_cd_kernels()
     X_train = training_data()
     counts = phase_train_cli(X_train)
-    rows.append({**cd_rows["cd_steps_f32"],
-                 "launches": counts["cd_steps_f32"]})
+    # phase 6 runs K3 at the training width; the headline row is the same
+    # kernel at phase 5's headline shape
+    for key in ("cd_steps_f32", "cd_steps_f32_train"):
+        rows.append({**cd_rows[key], "launches": counts["cd_steps_f32"]})
     sweeps = phase_cd_mod(X_train, x_np, W_np)
     rows.append({**cd_rows["cd_mod_sweep"], "launches": sweeps["headline"]})
     rows.append({**cd_rows["cd_mod_sweep_train"],

@@ -11,18 +11,35 @@
 // dynamic sublane loads) existed for the TPU compiler's sake and are not
 // carried over.
 //
-// K3 cd_steps: `steps` greedy CD steps per launch. Each warp keeps its b and
-// z rows in shared memory (2 K floats; 16 KB at K=2048) for all steps; lane
-// l owns the columns l, l+32, ..., so no lane ever reads another lane's
-// entries and the warp needs no barrier. A step computes prox(b)*scale - z,
-// takes the first index of the largest |.| by a warp shuffle reduction (ties
-// to the smaller index, NaN counted as largest, as torch.argmax and
-// jnp.argmax do), reads row k of S with a plain coalesced load (S is 16 MB
-// at K=2048 and stays in the 50 MB L2), and updates b, z_k and the active
-// flag. A row that goes inactive is frozen, so the warp stops early. b, z
-// and the flag are read and written once per launch.
+// K3 cd_steps: `steps` greedy CD steps per launch, one warp a row. A step
+// computes prox(b)*scale - z, takes the first index of the largest |.|
+// (ties to the smaller index, NaN counted as largest, as torch.argmax and
+// jnp.argmax do), reads row k of S (S is 16 MB at K=2048 and stays in the
+// 50 MB L2), and updates b, z_k and the active flag. A row that goes
+// inactive is frozen, so the warp stops early; b, z and the flag are read
+// and written once per launch. Two tiers:
+//   - registers (K a multiple of 128 up to 2048, rows 16-byte aligned;
+//     cd_steps_reg_kernel): b in registers, lane l the columns 128 m + 4 l
+//     .. + 3, z and the thresholds in shared memory, row k of S by one bulk
+//     copy; one sweep a step, step s's update fused with step s + 1's scan,
+//     and the warp's first maximum by two warp reductions (REDUX) on the
+//     bits of |diff| and the column. 148 registers at K = 2048, 12 warps an
+//     SM.
+//   - shared memory (every other K >= 32; cd_steps_kernel): b and z in
+//     shared memory (2 K floats a row), lane l the
+//     columns l, l + 32, ...; two sweeps a step (the scan, then the
+//     update), the register tier's integer keys reduced by a shuffle
+//     butterfly, S's row by plain loads, eight in flight a lane.
+// In both, a row frozen with steps left gets what the plain version's
+// later steps give it (their update is 0 * dz, NaN where the row's
+// largest |diff| is not finite), and the prox keeps a NaN as torch's does.
 //   What bounds it: the bytes of b and z in and out, 4 N K 4 B (0.54 GB,
-//   0.16 ms at 3.35 TB/s at 16384 x 2048); the S rows come from L2.
+//   0.16 ms at 3.35 TB/s at 16384 x 2048); the S rows come from L2, 1.07 GB
+//   a launch in f32 at 8 steps, 0.139 ms at the 7.73 TB/s that
+//   scripts/cd_steps_parts.py measures for such row gathers on an NVIDIA
+//   H100 80GB HBM3 at 700 W. There the register tier takes 0.337 ms a
+//   launch: the gathers' chain (a bulk copy and its wait a step) and b's
+//   and z's I/O, which overlap only in part, are most of it (PERF.md).
 //
 // K4 cd_mod_sweep: one cyclic sweep over the K atoms, blocked over chunks
 // of TJ = 16 atoms. Cyclic CD is sequential over the atoms only through R:
@@ -119,15 +136,6 @@ __device__ __forceinline__ float load_s(const __nv_bfloat16* s, size_t i) {
   return __bfloat162float(s[i]);
 }
 
-// (a, ia) is a better argmax candidate than (b, ib): NaN first, then the
-// larger value, then the smaller index
-__device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
-  const bool na = a != a, nb = b != b;
-  if (na != nb) return na;
-  if (!na && a != b) return a > b;
-  return ia < ib;
-}
-
 template <typename ST, bool NONNEG>
 __global__ void __launch_bounds__(32 * STEP_ROWS)
     cd_steps_kernel(const float* __restrict__ b_in,
@@ -144,14 +152,6 @@ __global__ void __launch_bounds__(32 * STEP_ROWS)
   if (n >= N) return;  // no barrier below: a warp may leave
   const size_t row = (size_t)n * K;
   float act = act_in[n];
-  if (act == 0.f) {  // frozen on entry: copy through
-    for (int j = lane; j < K; j += 32) {
-      b_out[row + j] = b_in[row + j];
-      z_out[row + j] = z_in[row + j];
-    }
-    if (lane == 0) act_out[n] = act;
-    return;
-  }
   float* bs = smem + (size_t)warp * 2 * K;
   float* zs = bs + K;
   for (int j = lane; j < K; j += 32) {
@@ -159,42 +159,71 @@ __global__ void __launch_bounds__(32 * STEP_ROWS)
     zs[j] = z_in[row + j];
   }
 
-  for (int s = 0; s < steps && act != 0.f; ++s) {
-    float best = -1.f, bd = 0.f;
-    int bj = K;
+  // per step: the first index k of the largest |prox(b) * scale - z| and
+  // its diff dz, then the update. A row frozen with steps to go scans once
+  // more: the plain version's next step still adds 0 * dz, which is NaN
+  // where the row's largest |diff| is not finite (b all NaN, z_k NaN), and
+  // each step after it finds b all NaN and adds NaN to z_0; a finite dz
+  // adds zeros, every step
+  for (int left = steps; left > 0;) {
+    // the running first maximum on the bits of |diff| (see the register
+    // tier), then the warp's: the larger key, or the smaller column on a
+    // tie, by a shuffle butterfly (with the register tier's REDUX pair the
+    // loads of S's row below ran far slower)
+    int bu = -1, bj = 0;
+    float bd = 0.f;
     for (int j = lane; j < K; j += 32) {
       const float bv = bs[j];
       const float th = trow != nullptr ? trow[j] : alpha;
       float p;
       if (NONNEG) {
-        p = fmaxf(__fsub_rn(bv, th), 0.f);
+        const float a = __fsub_rn(bv, th);
+        p = !(a <= 0.f) ? a : 0.f;   // a NaN stays NaN, as in clamp_min
       } else {
         const float a = __fsub_rn(fabsf(bv), th);
-        p = a > 0.f ? copysignf(a, bv) : 0.f;
+        p = !(a <= 0.f) ? copysignf(a, bv) : 0.f;
       }
       const float d = __fsub_rn(__fmul_rn(p, scale), zs[j]);
-      const float ad = fabsf(d);
-      if (bj == K || better(ad, j, best, bj)) {
-        best = ad;
+      const int u = __float_as_int(d) & 0x7fffffff;
+      if (u > bu) {
+        bu = u;
         bj = j;
         bd = d;
       }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(FULL, best, off);
+      const int ou = __shfl_xor_sync(FULL, bu, off);
       const int oj = __shfl_xor_sync(FULL, bj, off);
-      if (oj < K && (bj == K || better(ob, oj, best, bj))) {
-        best = ob;
+      if (ou > bu || (ou == bu && oj < bj)) {
+        bu = ou;
         bj = oj;
       }
     }
-    const int k = bj;  // < K: every lane holds a column when K >= 32
+    const int k = bj;  // every lane holds a column when K >= 32
     const float dz = __shfl_sync(FULL, bd, k & 31);
     const float upd = __fmul_rn(act, dz);
+    if (act == 0.f) {
+      if (upd != upd) {
+        for (int j = lane; j < K; j += 32) bs[j] = upd;
+        if ((k & 31) == lane) zs[k] = __fadd_rn(zs[k], upd);
+        if (left > 1 && lane == 0) zs[0] = __fadd_rn(zs[0], upd);
+      }
+      break;
+    }
+    --left;
+    // b += upd S[k, :], eight of the lane's loads of S's row in flight
     const ST* srow = S + (size_t)k * K;
-    for (int j = lane; j < K; j += 32)
-      bs[j] = __fmaf_rn(upd, load_s(srow, j), bs[j]);
+    for (int j0 = lane; j0 < K; j0 += 32 * 8) {
+      float sv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        sv[i] = j0 + 32 * i < K ? load_s(srow, j0 + 32 * i) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (j0 + 32 * i < K)
+          bs[j0 + 32 * i] = __fmaf_rn(upd, sv[i], bs[j0 + 32 * i]);
+    }
     if ((k & 31) == lane) zs[k] = __fadd_rn(zs[k], upd);
     if (!(fabsf(dz) > tol_k)) act = 0.f;
   }
@@ -203,6 +232,214 @@ __global__ void __launch_bounds__(32 * STEP_ROWS)
     b_out[row + j] = bs[j];
     z_out[row + j] = zs[j];
   }
+  if (lane == 0) act_out[n] = act;
+}
+
+// K3's register tier, for K = 128 kq with kq <= M and 16-byte-aligned rows:
+// the same steps, one warp a row, lane l the columns 128 m + 4 l .. + 3 (m
+// < kq). b stays in registers, z in the warp's row of shared memory (each
+// lane reads and writes only its own columns), the thresholds in one row
+// of shared memory for the block, and row k of S comes into the warp's slot
+// by one bulk copy (TMA) completing on the warp's mbarrier. One sweep a
+// step: step s's update b += upd S[k, :] and step s + 1's scan (the prox,
+// the diff and each lane's running first maximum) in the same pass over
+// the row. The running maximum compares the bits of |diff| as integers:
+// for |x| (sign cleared) their order is that of the values, with NaN (the
+// card's arithmetic writes one NaN, 0x7fffffff) above infinity, so one
+// compare keeps the rule "NaN first, then the larger". Each lane keeps
+// four chains (one a float4 component, the larger index winning only if
+// strictly larger) and merges them with the smaller index on a tie; the
+// warp then takes the largest key by one __reduce_max_sync and the
+// smallest column holding it by one __reduce_min_sync.
+constexpr int REG_ROWS = 4;   // warps (rows) per register-tier block
+
+__device__ __forceinline__ float4 load_slot(const float* slot, int i) {
+  return reinterpret_cast<const float4*>(slot)[i];
+}
+
+__device__ __forceinline__ float4 load_slot(const __nv_bfloat16* slot,
+                                            int i) {
+  const uint2 u = reinterpret_cast<const uint2*>(slot)[i];
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b),
+                     __high2float(b));
+}
+
+template <typename ST, bool NONNEG, int M>
+__global__ void __launch_bounds__(32 * REG_ROWS, M >= 16 ? 3 : M >= 8 ? 5 : 6)
+    cd_steps_reg_kernel(const float* __restrict__ b_in,
+                        const float* __restrict__ z_in,
+                        const float* __restrict__ act_in,
+                        const ST* __restrict__ S,
+                        const float* __restrict__ trow, float alpha,
+                        float tol_k, float scale, float* __restrict__ b_out,
+                        float* __restrict__ z_out,
+                        float* __restrict__ act_out, int N, int K,
+                        int steps) {
+  extern __shared__ __align__(16) float rsm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kq = K >> 7;
+  const int slot_floats = K * (int)sizeof(ST) / 4;
+  float* const th = rsm;                                  // [K], the block's
+  float* const zs = th + K + warp * (K + slot_floats);    // [K], the warp's
+  ST* const slot = reinterpret_cast<ST*>(zs + K);         // row k of S
+  const uint32_t bar =
+      wgp::smem_addr(rsm + K + REG_ROWS * (K + slot_floats)) + 8 * warp;
+  for (int j = threadIdx.x; j < K; j += blockDim.x)
+    th[j] = trow != nullptr ? trow[j] : alpha;
+  __syncthreads();  // the only block-wide barrier: warps may leave below
+  const int n = blockIdx.x * REG_ROWS + warp;
+  if (n >= N) return;
+  const size_t row = (size_t)n * K;
+  const float4* b4 = reinterpret_cast<const float4*>(b_in + row);
+  const float4* z4 = reinterpret_cast<const float4*>(z_in + row);
+  float4* bo4 = reinterpret_cast<float4*>(b_out + row);
+  float4* zo4 = reinterpret_cast<float4*>(z_out + row);
+  float4* const zs4 = reinterpret_cast<float4*>(zs);
+  const float4* const th4 = reinterpret_cast<const float4*>(th);
+  float act = act_in[n];
+  float4 bv[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    if (m < kq) {
+      bv[m] = b4[lane + 32 * m];
+      zs4[lane + 32 * m] = z4[lane + 32 * m];
+    }
+  if (lane == 0) {
+    wgp::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // the scan's running first maximum: four chains a lane, the key the bits
+  // of |diff|, the column's group m and the signed diff
+  int bu[4] = {-1, -1, -1, -1}, bm[4] = {0, 0, 0, 0};
+  float bd[4] = {0.f, 0.f, 0.f, 0.f};
+  auto scan_one = [&](float bval, float thv, float zv, int m, int e) {
+    float p;
+    if (NONNEG) {
+      const float a = __fsub_rn(bval, thv);
+      p = !(a <= 0.f) ? a : 0.f;   // a NaN stays NaN, as in clamp_min
+    } else {
+      const float a = __fsub_rn(fabsf(bval), thv);
+      p = !(a <= 0.f) ? copysignf(a, bval) : 0.f;
+    }
+    const float dv = __fsub_rn(__fmul_rn(p, scale), zv);
+    const int u = __float_as_int(dv) & 0x7fffffff;
+    if (u > bu[e]) {
+      bu[e] = u;
+      bm[e] = m;
+      bd[e] = dv;
+    }
+  };
+  auto scan_group = [&](int m) {
+    const float4 z = zs4[lane + 32 * m], t = th4[lane + 32 * m];
+    scan_one(bv[m].x, t.x, z.x, m, 0);
+    scan_one(bv[m].y, t.y, z.y, m, 1);
+    scan_one(bv[m].z, t.z, z.z, m, 2);
+    scan_one(bv[m].w, t.w, z.w, m, 3);
+  };
+  // b += upd S[k, :] on the lane's float4 group m, from the slot
+  auto update_group = [&](int m, float upd) {
+    const float4 sv = load_slot(slot, lane + 32 * m);
+    bv[m].x = __fmaf_rn(upd, sv.x, bv[m].x);
+    bv[m].y = __fmaf_rn(upd, sv.y, bv[m].y);
+    bv[m].z = __fmaf_rn(upd, sv.z, bv[m].z);
+    bv[m].w = __fmaf_rn(upd, sv.w, bv[m].w);
+  };
+  auto reset = [&]() {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bu[e] = -1;
+      bm[e] = 0;
+      bd[e] = 0.f;
+    }
+  };
+  // the warp's first maximum: its column k and signed diff dz
+  unsigned k = 0;
+  float dz = 0.f;
+  auto reduce = [&]() {
+    int U = bu[0];
+    unsigned J = 128u * bm[0] + 4u * lane;
+    float Dv = bd[0];
+#pragma unroll
+    for (int e = 1; e < 4; ++e) {
+      const unsigned j = 128u * bm[e] + 4u * lane + e;
+      if (bu[e] > U || (bu[e] == U && j < J)) {
+        U = bu[e];
+        J = j;
+        Dv = bd[e];
+      }
+    }
+    const unsigned top = __reduce_max_sync(FULL, (unsigned)U);
+    k = __reduce_min_sync(FULL, (unsigned)U == top ? J : 0xffffffffu);
+    dz = __shfl_sync(FULL, Dv, (k >> 2) & 31);
+  };
+
+  auto scan_reduce = [&]() {
+    reset();
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      if (m < kq) scan_group(m);
+    reduce();
+  };
+
+  int left = steps;   // the steps not taken yet
+  if (act != 0.f && left > 0) scan_reduce();
+  uint32_t phase = 0;
+  while (act != 0.f && left > 0) {
+    --left;
+    const float upd = __fmul_rn(act, dz);
+    if (((k >> 2) & 31) == (unsigned)lane) zs[k] = __fadd_rn(zs[k], upd);
+    if (!(fabsf(dz) > tol_k)) act = 0.f;
+    const bool more = left > 0 && act != 0.f;
+    if (lane == 0) {  // every lane has read the slot (the reductions)
+      wgp::fence_proxy_async();
+      wgp::mbar_expect_tx(bar, (uint32_t)(K * sizeof(ST)));
+      wgp::bulk_copy(wgp::smem_addr(slot), S + (size_t)k * K,
+                     (uint32_t)(K * sizeof(ST)), bar);
+    }
+    wgp::mbar_wait(bar, phase);
+    phase ^= 1u;
+    if (more) {
+      reset();
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        if (m < kq) {
+          update_group(m, upd);
+          scan_group(m);
+        }
+      __syncwarp();
+      reduce();
+    } else {
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        if (m < kq) update_group(m, upd);
+    }
+  }
+  if (left > 0) {
+    // frozen with steps to go: the plain version's next step still adds
+    // 0 * dz, which is NaN where the row's largest |diff| is not finite
+    // (b all NaN, z_k NaN), and each step after it finds b all NaN and
+    // adds NaN to z_0; a finite dz adds zeros, every step
+    scan_reduce();
+    const float upd = __fmul_rn(act, dz);
+    if (upd != upd) {
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        bv[m] = make_float4(upd, upd, upd, upd);
+      if (((k >> 2) & 31) == (unsigned)lane) zs[k] = __fadd_rn(zs[k], upd);
+      if (left > 1 && lane == 0) zs[0] = __fadd_rn(zs[0], upd);
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    if (m < kq) {
+      bo4[lane + 32 * m] = bv[m];
+      zo4[lane + 32 * m] = zs4[lane + 32 * m];
+    }
   if (lane == 0) act_out[n] = act;
 }
 
@@ -648,12 +885,43 @@ int set_smem(Kernel kernel, size_t smem) {
 
 constexpr size_t SMEM_MAX = 227 * 1024;
 
+template <typename ST, int M>
+int launch_steps_reg(const float* b, const float* z, const float* act,
+                     const ST* S, const float* trow, float alpha, float tol_k,
+                     float scale, int nonneg, float* b_out, float* z_out,
+                     float* act_out, int N, int K, int steps, void* stream) {
+  const size_t smem = sizeof(float) * (K + REG_ROWS * (K + K * sizeof(ST) / 4))
+                      + 8 * REG_ROWS;
+  auto kernel = nonneg ? cd_steps_reg_kernel<ST, true, M>
+                       : cd_steps_reg_kernel<ST, false, M>;
+  const int e = set_smem(kernel, smem);
+  if (e != 0) return e;
+  kernel<<<(N + REG_ROWS - 1) / REG_ROWS, 32 * REG_ROWS, smem,
+           (cudaStream_t)stream>>>(b, z, act, S, trow, alpha, tol_k, scale,
+                                   b_out, z_out, act_out, N, K, steps);
+  return (int)cudaGetLastError();
+}
+
 template <typename ST>
 int launch_steps(const float* b, const float* z, const float* act,
                  const ST* S, const float* trow, float alpha, float tol_k,
                  float scale, int nonneg, float* b_out, float* z_out,
                  float* act_out, int N, int K, int steps, void* stream) {
   if (K < 32) return (int)cudaErrorInvalidValue;
+  // the register tier: K a multiple of 128 up to 2048, rows 16-byte aligned
+  const bool aligned = ((uintptr_t)b | (uintptr_t)z | (uintptr_t)S |
+                        (uintptr_t)b_out | (uintptr_t)z_out) % 16 == 0;
+  if (aligned && K % 128 == 0 && K <= 2048) {
+#define STEPS_REG(M)                                                       \
+  return launch_steps_reg<ST, M>(b, z, act, S, trow, alpha, tol_k, scale,  \
+                                 nonneg, b_out, z_out, act_out, N, K, steps, \
+                                 stream)
+    if (K <= 512) STEPS_REG(4);
+    if (K <= 1024) STEPS_REG(8);
+    STEPS_REG(16);
+#undef STEPS_REG
+  }
+  // the shared-memory tier: b and z in shared memory (2 K floats a row)
   // rows per block: as many as fit (at most STEP_ROWS)
   int rows = STEP_ROWS;
   while (rows > 1 && (size_t)rows * 2 * K * sizeof(float) > SMEM_MAX) --rows;

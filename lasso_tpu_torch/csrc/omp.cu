@@ -59,10 +59,22 @@
 //                    c1_t + c2_t. The TPU kernel reads all T rows of a
 //                    zeroed Q; K6d reads the k live rows only (the state's
 //                    Q is not cleared), which is the same arithmetic, since
-//                    the coefficients of the rows >= k are exactly 0. The k
-//                    dot products of a pass are independent (no t-chain):
-//                    four are summed in one sweep over w and reduced
-//                    together. Everything else is K6b's.
+//                    the coefficients of the rows >= k are exactly 0. CGS2
+//                    needs all of pass 1's coefficients before its update,
+//                    and w1 whole before pass 2's, so the k rows are swept
+//                    four times. For D a multiple of 128 up to 1024
+//                    (omp_orth_cgs2_block_kernel<V>) a block of four warps
+//                    takes a sample and keeps its live rows resident in
+//                    shared memory (bulk copies, chunks of 8 rows on their
+//                    own mbarriers), so that device memory is read once a
+//                    step and the four sweeps read shared memory; up to 55
+//                    rows at D = 512 (two blocks an SM), the rest read from
+//                    global memory in each sweep. Other D (and rows that
+//                    are not 16-byte aligned) take omp_orth_kernel<true>:
+//                    a warp a sample, w lane-strided in shared memory, the
+//                    k dot products of a pass four to a sweep over w, each
+//                    row read from device memory in all four sweeps.
+//                    Everything else is K6b's.
 //   K6c omp_backsub: one warp per sample, the column-oriented
 //                    back-substitution R z = d once after step T.
 //
@@ -84,8 +96,10 @@
 // sample; with S rows of Q in flight a warp and 16-24 warps an SM, the
 // copies keep far more bytes in flight than the 25 KB an SM that Little's
 // law asks at 3.35 TB/s, so the streamed kernel is bound by Q's bytes.
-// K6d has the same bound and reads the k rows four times (two per pass),
-// from L2 where they are still there.
+// K6d has the same bound; its resident kernel reads the k rows from device
+// memory once and sweeps them four times in shared memory: 0.506 ms a step
+// on average over the 64 steps on an NVIDIA H100 80GB HBM3 at 700 W (1.153
+// at step 63, where two blocks share an SM; PERF.md).
 //
 // Each C entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
@@ -410,6 +424,42 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   return fmaf(a.w, b.w, acc);
 }
 
+// r -= d_k q_k for one warp's sample (lane l the float4s l + 32 m of r
+// and q_k in registers), stored with r's bf16x3 split (hi, then lo N D
+// further on)
+template <int V>
+__device__ __forceinline__ void store_residual(const float4 (&rv)[V],
+                                               const float4 (&qv)[V],
+                                               float dk, float* r,
+                                               __nv_bfloat16* rb, int n,
+                                               int N, int lane) {
+  constexpr int D = 128 * V;
+  float4* rn4 = reinterpret_cast<float4*>(r + (size_t)n * D);
+  uint2* hi2 = reinterpret_cast<uint2*>(rb + (size_t)n * D);
+  uint2* lo2 = reinterpret_cast<uint2*>(rb + (size_t)N * D + (size_t)n * D);
+#pragma unroll
+  for (int m = 0; m < V; ++m) {
+    const float4 v = make_float4(
+        __fsub_rn(rv[m].x, __fmul_rn(dk, qv[m].x)),
+        __fsub_rn(rv[m].y, __fmul_rn(dk, qv[m].y)),
+        __fsub_rn(rv[m].z, __fmul_rn(dk, qv[m].z)),
+        __fsub_rn(rv[m].w, __fmul_rn(dk, qv[m].w)));
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(
+        __fsub_rn(v.x, __low2float(h01)), __fsub_rn(v.y, __high2float(h01)));
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(
+        __fsub_rn(v.z, __low2float(h23)), __fsub_rn(v.w, __high2float(h23)));
+    rn4[lane + 32 * m] = v;
+    hi2[lane + 32 * m] =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
+                   *reinterpret_cast<const uint32_t*>(&h23));
+    lo2[lane + 32 * m] =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
+                   *reinterpret_cast<const uint32_t*>(&l23));
+  }
+}
+
 template <int V>
 __global__ void __launch_bounds__(SWARPS * 32)
     omp_orth_stream_kernel(const float* __restrict__ pval,
@@ -551,30 +601,252 @@ __global__ void __launch_bounds__(SWARPS * 32)
     dk = dot4(wv[m], rv[m], dk);
   }
   dk = warp_sum(dk);
-  float4* rn4 = reinterpret_cast<float4*>(r + (size_t)n * D);
-  uint2* hi2 = reinterpret_cast<uint2*>(rb + (size_t)n * D);
-  uint2* lo2 = reinterpret_cast<uint2*>(rb + (size_t)N * D + (size_t)n * D);
+  store_residual<V>(rv, wv, dk, r, rb, n, N, lane);
+  if (lane == 0) {
+    Rk[k] = __fsqrt_rn(pivot);
+    d[slot] = dk;
+  }
+}
+
+// K6d for D = 128 V, V <= 8, rows 16-byte aligned: step k of one sample
+// on a block of CWARPS warps. The sample's first RD live rows of Q come
+// into shared memory by bulk copies (chunks of CHUNK rows, each completing
+// on its own mbarrier, all issued before anything else waits) and stay
+// there for the four sweeps of the two passes, so each is read from
+// device memory once a step; rows t >= RD (past what two blocks an SM
+// leave room for) are read from global memory in every sweep, from L2
+// after the first. Every warp holds w in registers, lane l the float4s
+// l + 32 m. A pass's dot products split the rows among the warps (warp w
+// the rows t = w mod CWARPS, four reduced together); its update w -=
+// sum_t c_t q_t splits the float4 columns (warp w the m = w mod CWARPS,
+// each entry summed over t ascending as in omp_orth_kernel<true>), and the
+// warps exchange the new w through shared memory. Warp 0 reads r and
+// finishes the step as K6b does; warp 1 reduces the partials.
+constexpr int CWARPS = 4;   // warps a sample in the resident K6d kernel
+constexpr int CHUNK = 8;    // rows a bulk copy (and an mbarrier)
+// shared memory a resident K6d block may take so that two fit an SM (the
+// SM's 228 KB, less 1 KB the card reserves a block)
+constexpr int CGS2_BLOCK_SMEM = 113 * 1024;
+
+__device__ __forceinline__ float4 f4_sub(const float4& a, const float4& b) {
+  return make_float4(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y),
+                     __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ void f4_fma(float c, const float4& v, float4& s) {
+  s.x = fmaf(c, v.x, s.x);
+  s.y = fmaf(c, v.y, s.y);
+  s.z = fmaf(c, v.z, s.z);
+  s.w = fmaf(c, v.w, s.w);
+}
+
+template <int V>
+__global__ void __launch_bounds__(CWARPS * 32)
+    omp_orth_cgs2_block_kernel(const float* __restrict__ pval,
+                               const int* __restrict__ pidx, int nK,
+                               const float* __restrict__ wt,
+                               float* __restrict__ r, float* __restrict__ q,
+                               float* __restrict__ R, float* __restrict__ d,
+                               int* __restrict__ idx,
+                               float* __restrict__ valid,
+                               float* __restrict__ active,
+                               unsigned char* __restrict__ sel,
+                               __nv_bfloat16* __restrict__ rb, float tol,
+                               int k, int N, int K, int T, int RD) {
+  constexpr int D = 128 * V;
+  extern __shared__ __align__(16) unsigned char csm[];
+  float* const rows = reinterpret_cast<float*>(csm);   // [rd][D]
+  const int rd = min(k, RD), nch = (rd + CHUNK - 1) / CHUNK;
+  float* const wbuf = rows + (size_t)rd * D;            // [D]
+  float* const c1 = wbuf + D;                           // [T]
+  float* const c2 = c1 + T;                             // [T]
+  int* const flags = reinterpret_cast<int*>(c2 + T);    // act, k*
+  const uint32_t bars = wgp::smem_addr(flags + 2);      // [nch] mbarriers
+  const uint32_t rows_a = wgp::smem_addr(rows);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x;
+  const float* qn = q + (size_t)n * T * D;
+
+  // warp 0: r and the tol freeze on its square, then the resident rows on
+  // their way before anything else waits; warp 1: the first maximum over
+  // the row's column-tile partials
+  float4 rv[V];
+  if (warp == 0) {
+    const float4* r4 = reinterpret_cast<const float4*>(r + (size_t)n * D);
+    float rss = 0.f;
+#pragma unroll
+    for (int m = 0; m < V; ++m) {
+      rv[m] = r4[lane + 32 * m];
+      rss = dot4(rv[m], rv[m], rss);
+    }
+    rss = warp_sum(rss);
+    const bool act = active[n] > 0.f && rss > tol;
+    if (lane == 0) {
+      flags[0] = act;
+      if (act) {
+        for (int c = 0; c < nch; ++c) wgp::mbar_init(bars + 8 * c, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int c = 0; c < nch; ++c) {
+          const int t0 = c * CHUNK, nr = min(CHUNK, rd - t0);
+          bulk_row(rows_a + (uint32_t)(t0 * D * sizeof(float)),
+                   qn + (size_t)t0 * D, nr * D * sizeof(float),
+                   bars + 8 * c);
+        }
+      }
+    }
+  } else if (warp == 1) {
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    for (int b = lane; b < nK; b += 32)
+      better(bv, bi, pval[(size_t)n * nK + b], pidx[(size_t)n * nK + b]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      better(bv, bi, ov, oi);
+    }
+    if (lane == 0) flags[1] = (bi >= 0 && bi < K) ? bi : 0;
+  }
+  __syncthreads();   // the flags and the barriers are set
+  const bool act = flags[0] != 0;
+  const int kstar = flags[1];
+
+  const size_t slot = (size_t)n * T + k;
+  float4* qk4 = reinterpret_cast<float4*>(q + slot * D);
+  float* Rk = R + slot * T;   // column k of R
+  if (threadIdx.x == 0) {
+    idx[slot] = act ? kstar : 0;
+    valid[slot] = act ? 1.f : 0.f;
+    active[n] = act ? 1.f : 0.f;
+    if (act) sel[(size_t)n * K + kstar] = 1;
+  }
+  if (!act) {   // the same in every warp: the block leaves together
+    if (warp == 0) {
+#pragma unroll
+      for (int m = 0; m < V; ++m)
+        qk4[lane + 32 * m] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int t = lane; t <= k; t += 32) Rk[t] = t == k ? 1.f : 0.f;
+      if (lane == 0) d[slot] = 0.f;
+    }
+    return;
+  }
+
+  // the atom: each warp gathers its float4 columns into wbuf, then every
+  // warp reads all of it into registers
+  float4* const wbuf4 = reinterpret_cast<float4*>(wbuf);
+  const float4* w4 = reinterpret_cast<const float4*>(wt + (size_t)kstar * D);
+#pragma unroll
+  for (int m = 0; m < V; ++m)
+    if (m % CWARPS == warp) wbuf4[lane + 32 * m] = w4[lane + 32 * m];
+  __syncthreads();
+  float4 wv[V];
+#pragma unroll
+  for (int m = 0; m < V; ++m) wv[m] = wbuf4[lane + 32 * m];
+  const float4* rows4 = reinterpret_cast<const float4*>(rows);
+  const float4* qn4 = reinterpret_cast<const float4*>(qn);
+
+  // c[t] = q_t . w for the warp's rows t = warp mod CWARPS, four reduced
+  // together: first the resident rows (pass 1 waits for each chunk as it
+  // lands; a wait on a landed chunk returns at once), then those read from
+  // global memory. `base` is rows4 or qn4, so each call site knows its
+  // space.
+  auto dot_rows = [&](const float4* base, int t, int n_rows, float* c,
+                      bool wait) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = t + i * CWARPS;
+      if (i < n_rows) {
+        if (wait) wgp::mbar_wait(bars + 8 * (u / CHUNK), 0);
+        const float4* row = base + (size_t)u * (D / 4);
+#pragma unroll
+        for (int m = 0; m < V; ++m)
+          s[i] = dot4(row[lane + 32 * m], wv[m], s[i]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+    if (lane == 0)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < n_rows) c[t + i * CWARPS] = s[i];
+  };
+  auto dots = [&](float* c, bool wait) {
+    int t = warp;
+    for (; t < rd; t += 4 * CWARPS)
+      dot_rows(rows4, t, min(4, (rd - t + CWARPS - 1) / CWARPS), c, wait);
+    // the warp's first row past the resident ones
+    t = rd + (warp - rd % CWARPS + CWARPS) % CWARPS;
+    for (; t < k; t += 4 * CWARPS)
+      dot_rows(qn4, t, min(4, (k - t + CWARPS - 1) / CWARPS), c, false);
+  };
+  // w -= sum_t c[t] q_t: warp w the float4 columns m = w mod CWARPS over
+  // all k rows, each entry's sum in ascending t; then every warp reads
+  // the new w back
+  auto update = [&](const float* c) {
+#pragma unroll
+    for (int m = 0; m < V; ++m) {
+      if (m % CWARPS != warp) continue;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int col = lane + 32 * m;
+      int t = 0;
+#pragma unroll 4
+      for (; t < rd; ++t) f4_fma(c[t], rows4[(size_t)t * (D / 4) + col], s);
+      // the rows from global memory, eight loads in flight
+      for (; t + 8 <= k; t += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = qn4[(size_t)(t + i) * (D / 4) + col];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f4_fma(c[t + i], v[i], s);
+      }
+      for (; t < k; ++t) f4_fma(c[t], qn4[(size_t)t * (D / 4) + col], s);
+      wbuf4[col] = f4_sub(wv[m], s);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < V; ++m) wv[m] = wbuf4[lane + 32 * m];
+  };
+
+  dots(c1, true);
+  // every chunk has landed (each waited for by a warp): every thread
+  // observes each barrier's completion before it reads the rows
+  for (int c = 0; c < nch; ++c) wgp::mbar_wait(bars + 8 * c, 0);
+  __syncthreads();   // c1 complete; every warp has read w from wbuf
+  update(c1);
+  dots(c2, false);
+  __syncthreads();   // c2 complete; every warp has read w1 from wbuf
+  update(c2);
+  if (warp != 0) return;
+
+  float w0n = 0.f, nrm2 = 0.f;
 #pragma unroll
   for (int m = 0; m < V; ++m) {
-    const float4 v = make_float4(
-        __fsub_rn(rv[m].x, __fmul_rn(dk, wv[m].x)),
-        __fsub_rn(rv[m].y, __fmul_rn(dk, wv[m].y)),
-        __fsub_rn(rv[m].z, __fmul_rn(dk, wv[m].z)),
-        __fsub_rn(rv[m].w, __fmul_rn(dk, wv[m].w)));
-    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
-    const __nv_bfloat162 l01 = __floats2bfloat162_rn(
-        __fsub_rn(v.x, __low2float(h01)), __fsub_rn(v.y, __high2float(h01)));
-    const __nv_bfloat162 l23 = __floats2bfloat162_rn(
-        __fsub_rn(v.z, __low2float(h23)), __fsub_rn(v.w, __high2float(h23)));
-    rn4[lane + 32 * m] = v;
-    hi2[lane + 32 * m] =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
-                   *reinterpret_cast<const uint32_t*>(&h23));
-    lo2[lane + 32 * m] =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
-                   *reinterpret_cast<const uint32_t*>(&l23));
+    const float4 a = w4[lane + 32 * m];
+    w0n = dot4(a, a, w0n);
+    nrm2 = dot4(wv[m], wv[m], nrm2);
   }
+  w0n = warp_sum(w0n);
+  nrm2 = warp_sum(nrm2);
+  const float pivot =
+      fmaxf(nrm2, __fadd_rn(__fmul_rn(1e-12f, w0n), 1e-30f));
+  const float inv = __frsqrt_rn(pivot);
+  for (int t = lane; t < k; t += 32) Rk[t] = __fadd_rn(c1[t], c2[t]);
+
+  // q_k, d_k = q_k . r and r -= d_k q_k, with r's split
+  float dk = 0.f;
+#pragma unroll
+  for (int m = 0; m < V; ++m) {
+    wv[m] = make_float4(__fmul_rn(wv[m].x, inv), __fmul_rn(wv[m].y, inv),
+                        __fmul_rn(wv[m].z, inv), __fmul_rn(wv[m].w, inv));
+    qk4[lane + 32 * m] = wv[m];
+    dk = dot4(wv[m], rv[m], dk);
+  }
+  dk = warp_sum(dk);
+  store_residual<V>(rv, wv, dk, r, rb, n, N, lane);
   if (lane == 0) {
     Rk[k] = __fsqrt_rn(pivot);
     d[slot] = dk;
@@ -678,6 +950,51 @@ int launch_orth_stream(const float* pval, const int* pidx, int nK,
   launch_orth_stream<V>(pval, pidx, nK, wt, r, q, R, d, idx, valid, active, \
                         sel, rb, tol, k, N, K, T, stream)
 
+// the resident K6d's shared memory for rd rows: the rows, w's exchange
+// row, the two passes' coefficients, two flags and a barrier a chunk
+inline size_t cgs2_smem(int D, int T, int rd) {
+  return sizeof(float) * ((size_t)rd * D + D + 2 * T + 2) +
+         8 * (size_t)((rd + CHUNK - 1) / CHUNK);
+}
+
+// its rows: as many of the k live rows as leave room for two blocks an SM
+inline int cgs2_resident_rows(int D, int T, int k) {
+  int rows = k;
+  while (rows > 0 && cgs2_smem(D, T, rows) > CGS2_BLOCK_SMEM) --rows;
+  return rows;
+}
+
+template <int V>
+int launch_orth_cgs2(const float* pval, const int* pidx, int nK,
+                     const float* wt, float* r, float* q, float* R, float* d,
+                     int* idx, float* valid, float* active,
+                     unsigned char* sel, __nv_bfloat16* rb, float tol, int k,
+                     int N, int K, int T, void* stream) {
+  constexpr int D = 128 * V;
+  const int rd = cgs2_resident_rows(D, T, k);
+  const size_t smem = cgs2_smem(D, T, rd);
+  const int e = smem_opt_in(omp_orth_cgs2_block_kernel<V>, smem);
+  if (e != 0) return e;
+  omp_orth_cgs2_block_kernel<V><<<N, CWARPS * 32, smem,
+                                  (cudaStream_t)stream>>>(
+      pval, pidx, nK, wt, r, q, R, d, idx, valid, active, sel, rb, tol, k, N,
+      K, T, rd);
+  return (int)cudaGetLastError();
+}
+
+#define LAUNCH_CGS2(V)                                                      \
+  launch_orth_cgs2<V>(pval, pidx, nK, wt, r, q, R, d, idx, valid, active,  \
+                      sel, rb, tol, k, N, K, T, stream)
+
+// rows of 16-byte-aligned pointers and D a multiple of 128 up to 1024: the
+// tier of the streamed K6b and the resident K6d
+inline bool vector_tier(const float* wt, const float* r, const float* q,
+                        const __nv_bfloat16* rb, int D) {
+  const bool aligned = ((uintptr_t)wt | (uintptr_t)r | (uintptr_t)q |
+                        (uintptr_t)rb) % 16 == 0;
+  return aligned && D % 128 == 0 && D <= 1024;
+}
+
 }  // namespace
 
 // rb [2, N, D] bf16, the split of r (hi, lo); wt_hi, wt_lo [K, D] bf16,
@@ -712,9 +1029,7 @@ extern "C" int omp_orth(const float* pval, const int* pidx, int nK,
                         float* d, int* idx, float* valid, float* active,
                         unsigned char* sel, __nv_bfloat16* rb, float tol,
                         int k, int N, int D, int K, int T, void* stream) {
-  const bool aligned = ((uintptr_t)wt | (uintptr_t)r | (uintptr_t)q |
-                        (uintptr_t)rb) % 16 == 0;
-  if (!aligned || D % 128 != 0 || D > 1024)
+  if (!vector_tier(wt, r, q, rb, D))
     return launch_orth<false>(pval, pidx, nK, wt, r, q, R, d, idx, valid,
                               active, sel, rb, tol, k, N, D, K, T, stream);
   switch (D / 128) {
@@ -736,8 +1051,19 @@ extern "C" int omp_orth_cgs2(const float* pval, const int* pidx, int nK,
                              unsigned char* sel, __nv_bfloat16* rb,
                              float tol, int k, int N, int D, int K, int T,
                              void* stream) {
-  return launch_orth<true>(pval, pidx, nK, wt, r, q, R, d, idx, valid,
-                           active, sel, rb, tol, k, N, D, K, T, stream);
+  if (!vector_tier(wt, r, q, rb, D))
+    return launch_orth<true>(pval, pidx, nK, wt, r, q, R, d, idx, valid,
+                             active, sel, rb, tol, k, N, D, K, T, stream);
+  switch (D / 128) {
+    case 1: return LAUNCH_CGS2(1);
+    case 2: return LAUNCH_CGS2(2);
+    case 3: return LAUNCH_CGS2(3);
+    case 4: return LAUNCH_CGS2(4);
+    case 5: return LAUNCH_CGS2(5);
+    case 6: return LAUNCH_CGS2(6);
+    case 7: return LAUNCH_CGS2(7);
+    default: return LAUNCH_CGS2(8);
+  }
 }
 
 // z [N, T] = R^-1 d per sample, zero where valid is 0.

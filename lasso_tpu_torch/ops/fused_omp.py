@@ -27,8 +27,10 @@ of ``csrc/omp.cu`` from the host, then one back-substitution:
   row and 128-atom tile;
 * :func:`omp_orth` (K6b, or K6d with ``gs='cgs2'``): the partials' first
   maximum, the freeze, the atom gather, Gram-Schmidt, ``q_k``, R,
-  ``d_k`` and the residual update (K6b up to D = 1024 streams the live
-  rows of Q through shared memory by bulk copies, ahead of its chain);
+  ``d_k`` and the residual update (up to D = 1024 K6b streams the live
+  rows of Q through shared memory by bulk copies, ahead of its chain, and
+  K6d keeps them resident in a block's shared memory for its four
+  sweeps);
 * :func:`omp_backsub` (K6c): ``R z = d``.
 
 Each entry launches its kernel on a CUDA tensor (or raises) and runs its
@@ -67,8 +69,10 @@ OMP_ORTH = {"mgs": _cuda.CudaKernel("omp", "omp_orth", _ORTH_ARGS),
 OMP_BACKSUB = _cuda.CudaKernel("omp", "omp_backsub", [_P] * 4 + [_I] * 2
                                + [_P])
 TILE = 128        # atoms per partial: BN of csrc/wgmma_product.cuh
-# K6d (and K6b past D = 1024) keeps a [D] row for each of the 8 samples of
-# a block in shared memory; K6b up to D = 1024 keeps w and r in registers
+# past D = 1024 (or with rows not 16-byte aligned) K6b and K6d keep a [D]
+# row for each of the 8 samples of a block in shared memory (K6d also its
+# [2 T] coefficients); up to D = 1024 K6b keeps w and r in registers and
+# K6d a sample's live rows in a block's shared memory
 _WARPS = 8
 _MAX_D = 227 * 1024 // (_WARPS * 4)   # floats such a warp may hold
 

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time the batched Cholesky solve K8 (``batch_cholesky_solve_lanes``) and
-the fused OMP step K6b (``omp_orth``) on one CUDA card, for this checkout
-and, with ``--other DIR``, for another checkout of the repository (for
-example the parent commit unpacked with ``git archive``).
+"""Time the batched Cholesky solve K8 (``batch_cholesky_solve_lanes``), the
+fused OMP steps K6b (``omp_orth``) and K6d (``omp_orth_cgs2``) and the
+greedy-CD kernel K3 (``cd_steps``) on one CUDA card, for this checkout and,
+with ``--other DIR``, for another checkout of the repository (for example
+the parent commit unpacked with ``git archive``).
 
     python3 scripts/chol_omp_timing.py [--other DIR] [--ptxas]
 
 Each tree runs in a process of its own (both packages are named
 ``lasso_tpu_torch``), in the order other, this, this, other, so that the
-two are compared on one card in turns. A process builds its tree's ``omp``
-and ``chol`` libraries (``--ptxas``: and prints what ptxas says of each
-kernel), then:
+two are compared on one card in turns. A process builds its tree's
+``omp``, ``chol`` and ``cd`` libraries (``--ptxas``: and prints what ptxas
+says of each kernel), then:
 
 * K8 at B=16384, D=64 (OMP 'chol-full' at T=64) and B=1024, D=256 (the
   gate's limit), on A = Q Q^T + 2 I: x held to the plain version at rtol
@@ -19,12 +20,18 @@ kernel), then:
 * one fused OMP solve at benchmarks/omp_fused_bench.py's problem
   (16384x512->2048, T=64, f32), with events around every launch: K6b's
   mean over the 64 steps and its time at steps 0, 32 and 63, K6a's mean;
-  the same with ``gs='cgs2'`` for K6d's mean; K6b at step 32 held to its
-  plain version from one state (idx, valid and the masks equal; r, q_k,
-  R's column, d_k and r's split at rtol 2e-4 / atol 1e-5);
+  the same with ``gs='cgs2'`` for K6d; K6b and K6d at step 32 held to
+  their plain versions from one state (idx, valid and the masks equal; r,
+  q_k, R's column, d_k and r's split at rtol 2e-4 / atol 1e-5);
 * solves/s of ``sparse_encode(algorithm='omp', n_nonzero_coefs=64)`` (the
-  fused route) and of the same with ``solver='chol-full'`` (K8 once a
-  step), the best of two solves after one warm-up.
+  fused route), of the same with ``solver='chol-full'`` (K8 once a step)
+  and of ``fused_omp_solve(gs='cgs2')`` (K6d once a step), the best of two
+  solves after one warm-up;
+* K3 ``cd_steps`` in f32 and bf16 at 16384x512->2048 (the headline) and
+  16384x256->1024 (the training width): 8 steps a launch from b = x W,
+  z = 0, every row active, alpha 0.2, tol 0 (phase 5's operands in
+  ``chip_smoke.py``), held to its plain version (b and z atol 1e-6) and
+  timed as K8.
 
 It prints one JSON line a process; the parent prints the card's name and
 power limit and a summary line last.
@@ -42,6 +49,7 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, D, K, T = 16384, 512, 2048, 64        # benchmarks/omp_fused_bench.py
 CHOL_SHAPES = ((16384, 64), (1024, 256))
+CD_WIDTHS = ((512, 2048), (256, 1024))   # K3: (D, K), 16384 rows
 
 
 def measure(root, label, ptxas):
@@ -51,9 +59,10 @@ def measure(root, label, ptxas):
     from lasso_tpu_torch.linear import sparse_encode
     from lasso_tpu_torch.ops import _cuda
     from lasso_tpu_torch.ops import batched_cholesky as B
+    from lasso_tpu_torch.ops import fused_cd as C
     from lasso_tpu_torch.ops import fused_omp as O
 
-    logs = _cuda.build(["omp", "chol"], ptxas_verbose=ptxas)
+    logs = _cuda.build(["omp", "chol", "cd"], ptxas_verbose=ptxas)
     for line in "".join(logs.values()).splitlines():
         if ptxas and ("registers" in line or "spill" in line
                       or "Compiling" in line):
@@ -119,41 +128,71 @@ def measure(root, label, ptxas):
         orth = [ev[2 * k + 1].elapsed_time(ev[2 * k + 2]) for k in range(T)]
         name = "omp_orth" if gs == "mgs" else "omp_orth_cgs2"
         out[f"{name}_mean_ms"] = sum(orth) / T
+        out[f"{name}_steps_ms"] = {s: orth[s] for s in (0, 32, T - 1)}
         if gs == "mgs":
-            out["omp_orth_steps_ms"] = {s: orth[s] for s in (0, 32, T - 1)}
             out["omp_select_f32_mean_ms"] = sum(
                 ev[2 * k].elapsed_time(ev[2 * k + 1]) for k in range(T)) / T
         del state
-    # K6b at step 32 from one state against its plain version
-    st = O.omp_init_state(x, K, T)
-    for k in range(32):
+    # K6b and K6d at step 32 from one state against their plain versions
+    for gs, name in (("mgs", "omp_orth"), ("cgs2", "omp_orth_cgs2")):
+        st = O.omp_init_state(x, K, T)
+        for k in range(32):
+            O.omp_select(st, wsplit, invn)
+            O.omp_orth(st, wt, k, gs=gs)
         O.omp_select(st, wsplit, invn)
-        O.omp_orth(st, wt, k)
-    O.omp_select(st, wsplit, invn)
-    twin = O.OmpState(**{f: getattr(st, f).clone()
-                         for f in st.__dataclass_fields__})
-    O.omp_orth(st, wt, 32)
-    O.omp_orth_plain(twin, wt, 32)
-    exact = all(torch.equal(a, c) for a, c in (
-        (st.idx[:, 32], twin.idx[:, 32]), (st.valid[:, 32], twin.valid[:, 32]),
-        (st.active, twin.active), (st.sel, twin.sel)))
-    e = max(worst(a, c, 2e-4) for a, c in (
-        (st.r, twin.r), (st.Q[:, 32], twin.Q[:, 32]),
-        (st.R[:, 32, :33], twin.R[:, 32, :33]), (st.d[:, 32], twin.d[:, 32]),
-        (st.rb.float().sum(0), twin.rb.float().sum(0))))
-    ok &= exact and e <= 1e-5
-    out["omp_orth_step32_excess"], out["omp_orth_step32_exact"] = e, exact
-    del st, twin
+        twin = O.OmpState(**{f: getattr(st, f).clone()
+                             for f in st.__dataclass_fields__})
+        O.omp_orth(st, wt, 32, gs=gs)
+        O.omp_orth_plain(twin, wt, 32, gs=gs)
+        exact = all(torch.equal(a, c) for a, c in (
+            (st.idx[:, 32], twin.idx[:, 32]),
+            (st.valid[:, 32], twin.valid[:, 32]),
+            (st.active, twin.active), (st.sel, twin.sel)))
+        e = max(worst(a, c, 2e-4) for a, c in (
+            (st.r, twin.r), (st.Q[:, 32], twin.Q[:, 32]),
+            (st.R[:, 32, :33], twin.R[:, 32, :33]),
+            (st.d[:, 32], twin.d[:, 32]),
+            (st.rb.float().sum(0), twin.rb.float().sum(0))))
+        ok &= exact and e <= 1e-5
+        out[f"{name}_step32_excess"], out[f"{name}_step32_exact"] = e, exact
+        del st, twin
 
-    for key, kw in (("fused", {}), ("chol_full", {"solver": "chol-full"})):
+    solves = {"fused": lambda: sparse_encode(x, W, algorithm="omp",
+                                             n_nonzero_coefs=T),
+              "chol_full": lambda: sparse_encode(x, W, algorithm="omp",
+                                                 n_nonzero_coefs=T,
+                                                 solver="chol-full"),
+              "cgs2": lambda: O.fused_omp_solve(x, W, T, gs="cgs2")}
+    for key, solve in solves.items():
         secs = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sparse_encode(x, W, algorithm="omp", n_nonzero_coefs=T, **kw)
+            solve()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         out[f"omp_{key}_solves_per_s"] = 1 / min(secs[1:])
+    del x, W, wt, wsplit, invn
+
+    for d_, k_ in CD_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(1)
+        xc = torch.randn(N, d_, generator=g, device=dev)
+        Wc = torch.randn(d_, k_, generator=g, device=dev)
+        Wc = Wc / Wc.norm(dim=0)
+        S = torch.eye(k_, device=dev) - Wc.T @ Wc
+        args = (xc @ Wc, torch.zeros(N, k_, device=dev),
+                torch.ones(N, 1, device=dev), S, 0.2, 0.0)
+        for kp in ("f32", "bf16"):
+            got = C.fused_cd_steps(*args, steps=8, kernel_precision=kp)
+            torch.cuda.synchronize()
+            want = C.fused_cd_steps_plain(*args, steps=8, kernel_precision=kp)
+            e = max(float((a - c).abs().max())
+                    for a, c in zip(got[:2], want[:2]))
+            ok &= e <= 1e-6 and bool(torch.equal(got[2], want[2]))
+            out[f"cd_steps_{kp}_{N}x{k_}_ms"] = cuda_ms(
+                lambda: C.fused_cd_steps(*args, steps=8, kernel_precision=kp))
+            out[f"cd_steps_{kp}_{N}x{k_}_err"] = e
+        del xc, Wc, S, args, got, want
     out["ok"] = ok
     print(json.dumps(out), flush=True)
 
@@ -196,9 +235,14 @@ def main():
     summary = {}
     for r in rows:
         for key, v in r.items():
-            if key.endswith(("_ms", "_per_s")) and not isinstance(v, dict):
-                summary.setdefault(key, {}).setdefault(r["tree"], []).append(
-                    round(v, 4))
+            # the per-step dicts as one key a step
+            items = ({f"{key[:-len('_steps_ms')]}_step{s}_ms": t
+                      for s, t in v.items()} if isinstance(v, dict)
+                     else {key: v})
+            for k, t in items.items():
+                if k.endswith(("_ms", "_per_s")):
+                    summary.setdefault(k, {}).setdefault(
+                        r["tree"], []).append(round(t, 4))
     print(json.dumps({"summary": summary,
                       "ok": all(r["ok"] for r in rows)}))
     return 0 if all(r["ok"] for r in rows) else 1

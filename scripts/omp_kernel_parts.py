@@ -1,34 +1,52 @@
 #!/usr/bin/env python3
-"""Where the fused OMP step K6b (lasso_tpu_torch/csrc/omp.cu, the streamed
-``omp_orth`` kernel) spends its time: it is timed whole and with one part
-cut out, at steps 0, 32 and 63 of one f32 solve.
+"""Where the fused OMP steps K6b (``omp_orth``) and K6d (``omp_orth_cgs2``)
+of lasso_tpu_torch/csrc/omp.cu spend their time: each is timed whole and
+with one part cut out, at steps 0, 32 and 63 of one f32 solve.
 
 Run from the root of the repository on a machine with an NVIDIA card and
 the CUDA toolkit:
 
-    python3 scripts/omp_kernel_parts.py
+    python3 scripts/omp_kernel_parts.py [--kernels k6b|k6d|all]
 
 It builds copies of csrc/omp.cu into build/omp_parts/: the source as it is
-("whole"); the two timing bodies of the JAX package's fused OMP kernel
-(lasso_tpu/ops/fused_omp.py, ``profile=``), as cuts of K6b:
-"select_only" (:136, the selection product and the first maximum only:
-K6b stops once it has written idx, valid and the mask, and the script adds
-K6a's time) and "no_gs" (:147, the whole step with the projection
-coefficients zero: no Gram-Schmidt chain and no copies of Q); then
-"no_q_copies" (the chain runs on whatever its ring holds: no bulk copies
-of Q, no waits), "no_reduce" (each dot product left unreduced across the
-warp) and "no_outputs" (no stores of q_k, r and r's split), and
-"skeleton" (no_gs and no_outputs at once: r's read, the partials, the
-atom's gather and the small stores). The states come from the whole
-kernel: step k's state is built by the package's own kernels, then each
-copy's K6b is launched on it 10 times by CUDA events around each launch,
-behind about 20 ms of queued work, with r and the active flags put back
-between launches. It prints one JSON line a step with the card's name and
-power limit, at benchmarks/omp_fused_bench.py's problem (16384x512->2048,
-T=64). The cut copies compute wrong results; only their times mean
-anything.
+("whole") and copies with one part cut out. K6b (the streamed kernel): the
+two timing bodies of the JAX package's fused OMP kernel
+(lasso_tpu/ops/fused_omp.py, ``profile=``), as cuts of K6b: "select_only"
+(:136, the selection product and the first maximum only: K6b stops once it
+has written idx, valid and the mask, and the script adds K6a's time) and
+"no_gs" (:147, the whole step with the projection coefficients zero: no
+Gram-Schmidt chain and no copies of Q); then "no_q_copies" (the chain runs
+on whatever its ring holds: no bulk copies of Q, no waits), "no_reduce"
+(each dot product left unreduced across the warp) and "no_outputs" (no
+stores of q_k, r and r's split), and "skeleton" (no_gs and no_outputs at
+once: r's read, the partials, the atom's gather and the small stores).
+
+K6d at this width takes its resident kernel (``omp_orth_cgs2_block_kernel``):
+one copy without each of its four sweeps over the live rows ("cgs2_no_
+dots1", "cgs2_no_update1", "cgs2_no_dots2", "cgs2_no_update2": the
+coefficients or the new w are then whatever memory holds), "cgs2_no_row_
+copies" (no bulk copies of the resident rows: the sweeps read whatever
+shared memory holds), "cgs2_q_from_cache" (every sample reads sample 0's
+rows: Q comes from L2, not from device memory) and "cgs2_all_resident"
+(room for every live row, so one block an SM at the late steps in place of
+two, the rows past 55 no longer read from global memory). The "kept_"
+copies send K6d to its warp kernel (``omp_orth_kernel<true>``, the kernel
+before the resident one, which reads the live rows from global memory in
+each of the four sweeps) and cut its second pass ("kept_no_pass2"), both
+passes' dot sweeps ("kept_no_dots"), both update sweeps ("kept_no_
+updates"), or read sample 0's rows ("kept_q_from_cache").
+
+The states come from the package's own kernels: step k's state is built by
+the MGS solve, then each copy's kernel is launched on it 10 times by CUDA
+events around each launch, behind about 20 ms of queued work, with r and
+the active flags put back between launches. It prints one JSON line a step
+with the card's name and power limit, at benchmarks/omp_fused_bench.py's
+problem (16384x512->2048, T=64), and for K6d one line a sweep and step:
+the time without that sweep and what the whole kernel spends beyond it.
+The cut copies compute wrong results; only their times mean anything.
 """
 
+import argparse
 import ctypes
 import json
 import os
@@ -69,7 +87,8 @@ CUTS = {
     "no_reduce": [("    cf = warp_sum(cf);\n#pragma unroll",
                    "#pragma unroll")],
     "no_outputs": [
-        ("    qk4[lane + 32 * m] = wv[m];\n", ""),
+        # in K6b and in K6d's resident kernel; this copy times K6b only
+        ("    qk4[lane + 32 * m] = wv[m];\n", "", 2),
         ("    rn4[lane + 32 * m] = v;\n",
          "    if (v.x == 1.2345f) rn4[0] = v;\n"),
         ("    hi2[lane + 32 * m] =", "    if (v.x == 1.2345f) hi2[0] ="),
@@ -77,20 +96,67 @@ CUTS = {
 }
 # what is left with neither the chain nor the big stores
 CUTS["skeleton"] = CUTS["no_gs"] + CUTS["no_outputs"]
+# K6d's copies, each timed through omp_orth_cgs2: the resident kernel's
+# four sweeps over the sample's live rows of Q (pass 1's dot products and
+# update, pass 2's), its row copies and where Q comes from
+CGS2_CUTS = {
+    "cgs2_no_dots1": [("  dots(c1, true);\n", "")],
+    "cgs2_no_update1": [("  update(c1);\n", "")],
+    "cgs2_no_dots2": [("  dots(c2, false);\n", "")],
+    "cgs2_no_update2": [("  update(c2);\n  if (warp != 0) return;",
+                         "  if (warp != 0) return;")],
+    "cgs2_no_row_copies": [
+        ("          bulk_row(rows_a + (uint32_t)(t0 * D * sizeof(float)),\n"
+         "                   qn + (size_t)t0 * D, nr * D * sizeof(float),\n"
+         "                   bars + 8 * c);",
+         "          wgp::mbar_arrive(bars + 8 * c);")],
+    "cgs2_q_from_cache": [
+        ("  const float* qn = q + (size_t)n * T * D;\n\n  // warp 0:",
+         "  const float* qn = q;\n\n  // warp 0:")],
+    "cgs2_all_resident": [("constexpr int CGS2_BLOCK_SMEM = 113 * 1024;",
+                           "constexpr int CGS2_BLOCK_SMEM = 226 * 1024;")],
+}
+# K6d's warp kernel, the one it keeps for other D
+TO_KEPT = [("  if (!vector_tier(wt, r, q, rb, D))\n"
+            "    return launch_orth<true>(", "  if (true)\n"
+            "    return launch_orth<true>(")]
+KEPT_CUTS = {
+    "kept_no_pass2": [("    cgs_pass(qn, w, c2, k, D, lane);\n", "")],
+    "kept_no_dots": [
+        ("  for (; t + 4 <= k; t += 4) {", "  for (; t + 4 <= 0; t += 4) {"),
+        ("  for (; t < k; ++t) {\n    const float* qt",
+         "  for (; t < 0; ++t) {\n    const float* qt")],
+    "kept_no_updates": [
+        ("    for (int u = 0; u < k; ++u) s = fmaf(c[u]",
+         "    for (int u = 0; u < 0; ++u) s = fmaf(c[u]")],
+    # every sample reads sample 0's rows: Q from the caches, not from
+    # device memory
+    "kept_q_from_cache": [
+        ("  const float* qn = q + (size_t)n * T * D;\n  if (CGS2) {",
+         "  const float* qn = q;\n  if (CGS2) {")],
+}
+CGS2_CUTS.update({"kept_whole": TO_KEPT,
+                  **{name: TO_KEPT + cuts
+                     for name, cuts in KEPT_CUTS.items()}})
+SWEEPS = ("cgs2_no_dots1", "cgs2_no_update1", "cgs2_no_dots2",
+          "cgs2_no_update2")
 
 
-def build():
-    """{copy: ctypes library}, the copies compiled together."""
+def build(kernels):
+    """{copy: ctypes library}, the copies of ``kernels`` ('k6b', 'k6d' or
+    'all') compiled together."""
     src = open(os.path.join(_cuda.CSRC, "omp.cu")).read()
     out = os.path.join(ROOT, "build", "omp_parts")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, cuts in {"whole": [], **CUTS}.items():
+    copies = {"whole": [], **(CUTS if kernels != "k6d" else {}),
+              **(CGS2_CUTS if kernels != "k6b" else {})}
+    for name, cuts in copies.items():
         text = src
-        for old, new in cuts:
-            if text.count(old) != 1:
+        for old, new, *times in cuts:   # (old, new[, occurrences])
+            if text.count(old) != (times[0] if times else 1):
                 raise RuntimeError(f"{name}: {old!r} is not in csrc/omp.cu "
-                                   f"once")
+                                   f"{times[0] if times else 1} time(s)")
             text = text.replace(old, new)
         path = os.path.join(out, f"omp_{name}.cu")
         with open(path, "w") as f:
@@ -106,8 +172,9 @@ def build():
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         libs[name] = ctypes.CDLL(lib)
-        libs[name].omp_orth.argtypes = O._ORTH_ARGS
-        libs[name].omp_orth.restype = ctypes.c_int
+        for entry in ("omp_orth", "omp_orth_cgs2"):
+            getattr(libs[name], entry).argtypes = O._ORTH_ARGS
+            getattr(libs[name], entry).restype = ctypes.c_int
     return libs
 
 
@@ -132,6 +199,10 @@ def launch_ms(fn, restore, reps=10):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", choices=("k6b", "k6d", "all"),
+                    default="all", help="the kernels whose copies to time")
+    kernels = ap.parse_args().kernels
     if not torch.cuda.is_available():
         print("omp_kernel_parts: no CUDA device", file=sys.stderr)
         return 1
@@ -139,7 +210,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    libs = build()
+    libs = build(kernels)
     rng = np.random.default_rng(0)   # benchmarks/omp_fused_bench.py's draw
     W = rng.standard_normal((D, K)).astype(np.float32)
     W /= np.linalg.norm(W, axis=0, keepdims=True)
@@ -160,23 +231,37 @@ def main():
                 st.active.copy_(active0)
 
             k6a = launch_ms(lambda: O.omp_select(st, wsplit, invn), restore)
-            times = {}
+            times, cgs2 = {}, {}
             for name, lib in libs.items():
-                def k6b(lib=lib):
-                    return lib.omp_orth(
+                def orth(fn):
+                    return fn(
                         st.pval.data_ptr(), st.pidx.data_ptr(),
                         st.pval.shape[1], wt.data_ptr(), st.r.data_ptr(),
                         st.Q.data_ptr(), st.R.data_ptr(), st.d.data_ptr(),
                         st.idx.data_ptr(), st.valid.data_ptr(),
                         st.active.data_ptr(), st.sel.data_ptr(),
                         st.rb.data_ptr(), tol, k, N, D, K, T, stream)
-                times[name] = round(launch_ms(k6b, restore), 4)
-            times["select_only"] = round(times["select_only"] + k6a, 4)
+                if kernels != "k6b" and (name == "whole"
+                                         or name in CGS2_CUTS):
+                    cgs2[name] = round(launch_ms(
+                        lambda: orth(lib.omp_orth_cgs2), restore), 4)
+                if kernels != "k6d" and name not in CGS2_CUTS:
+                    times[name] = round(launch_ms(
+                        lambda: orth(lib.omp_orth), restore), 4)
+            if "select_only" in times:
+                times["select_only"] = round(times["select_only"] + k6a, 4)
             print(json.dumps({"card": card, "width": f"{N}x{D}->{K}",
                               "step": k, "k6a_ms": round(k6a, 4),
-                              "k6b_ms": times,
+                              "k6b_ms": times, "k6d_ms": cgs2,
                               "note": "select_only is K6a plus K6b cut "
                                       "after the selection"}), flush=True)
+            for name in SWEEPS if cgs2 else ():
+                print(json.dumps({
+                    "card": card, "step": k, "kernel": "omp_orth_cgs2",
+                    "sweep": name[len("cgs2_no_"):],
+                    "ms_without": cgs2[name],
+                    "whole_less_without_ms": round(
+                        cgs2["whole"] - cgs2[name], 4)}), flush=True)
             restore()
         O.omp_orth(st, wt, k)
     return 0

@@ -90,31 +90,69 @@ def test_solver_on_card_matches_cpu(kw):
                                atol=1e-4)
 
 
+# K3's cases: (rows, D, K) shapes, and whether rows get exact ties at their
+# largest diff and NaNs in b and z
+CD_STEPS_CASES = {
+    "registers_k384": ([(200, 256, 384)], False),
+    "registers_k1024": ([(203, 256, 1024)], False),
+    "registers_k2048": ([(130, 512, 2048)], False),
+    "shared_memory": ([(70, 64, 100), (66, 256, 2176)], False),
+    "ties_nan": ([(96, 128, 256)], True),
+}
+
+
+@pytest.mark.parametrize("case", list(CD_STEPS_CASES))
 @pytest.mark.parametrize("kp", ["f32", "bf16"])
-def test_cd_steps_kernel_matches_plain(kp):
+def test_cd_steps_kernel_matches_plain(kp, case):
     """K3 against its plain version on the card, plain and with a
     per-feature row, nonneg, l2 and rows inactive on entry: b and z atol
     1e-6 (both round the same operations; only an FMA the plain version
-    may take otherwise could differ), the active mask equal."""
+    may take otherwise could differ), the active mask equal. The register
+    tier at K = 384 (three of four float4 groups a lane), 1024 and 2048;
+    the shared-memory tier at K = 100 (not a multiple of 32) and K = 2176
+    (past the register tier); and rows whose largest diff is an exact tie
+    between two columns (in two lanes, in one chain of one lane, in two
+    chains of one lane: the smaller column wins), rows with a NaN in b (the
+    prox keeps it, so it is the largest), a NaN in z or an infinite b,
+    some of them inactive on entry (the plain version's 0 * dz is then NaN:
+    b all NaN, z_k NaN, and z_0 NaN if a step is left)."""
     _need_card()
+    shapes, ties = CD_STEPS_CASES[case]
     rng = np.random.default_rng(0)
-    x, _, _, W = (t(a).cuda() for a in make_problem(rng, 200, 256, 384))
-    W = W / W.norm(dim=0)
-    S = torch.eye(384, device="cuda") - W.T @ W
-    b, z = x @ W, torch.zeros(200, 384, device="cuda")
-    act = torch.ones(200, 1, device="cuda")
-    act[::7] = 0.0
-    arow = t((0.05 + 0.1 * rng.random((1, 384))).astype(np.float32)).cuda()
     before = T_CD.CD_STEPS[kp].launches
-    for kw in ({"alpha": 0.2}, {"alpha": arow, "nonneg": True, "l2": 0.3}):
-        got = T_CD.fused_cd_steps(b, z, act, S, tol_k=0.05, steps=8,
-                                  kernel_precision=kp, **kw)
-        want = T_CD.fused_cd_steps_plain(b, z, act, S, tol_k=0.05, steps=8,
-                                         kernel_precision=kp, **kw)
-        for a, c in zip(got[:2], want[:2]):
-            np.testing.assert_allclose(n(a), n(c), rtol=0, atol=1e-6)
-        np.testing.assert_array_equal(n(got[2]), n(want[2]))
-    assert T_CD.CD_STEPS[kp].launches - before == 2
+    for rows, d, k in shapes:
+        x, _, _, W = (t(a).cuda() for a in make_problem(rng, rows, d, k))
+        W = W / W.norm(dim=0)
+        S = torch.eye(k, device="cuda") - W.T @ W
+        b, z = x @ W, torch.zeros(rows, k, device="cuda")
+        if ties:
+            for r0, (c0, c1) in enumerate(((3, 10), (5, 133), (4, 6))):
+                b[r0::4, c0] = b[r0::4, c1] = 10.0
+            b[3::8, 7] = float("nan")
+            z[7::8, 9] = float("nan")
+            b[11::16, 2] = float("inf")
+        act = torch.ones(rows, 1, device="cuda")
+        act[::7] = 0.0
+        arow = t((0.05 + 0.1 * rng.random((1, k))).astype(np.float32)).cuda()
+        for kw in ({"alpha": 0.2},
+                   {"alpha": arow, "nonneg": True, "l2": 0.3}):
+            got = T_CD.fused_cd_steps(b, z, act, S, tol_k=0.05, steps=8,
+                                      kernel_precision=kp, **kw)
+            want = T_CD.fused_cd_steps_plain(b, z, act, S, tol_k=0.05,
+                                             steps=8, kernel_precision=kp,
+                                             **kw)
+            for a, c in zip(got[:2], want[:2]):
+                np.testing.assert_allclose(n(a), n(c), rtol=0, atol=1e-6)
+            np.testing.assert_array_equal(n(got[2]), n(want[2]))
+        if ties:   # the first step took the smaller column of each tie
+            first = T_CD.fused_cd_steps(b, z, act, S, 0.2, 0.05, steps=1,
+                                        kernel_precision=kp)[1]
+            for r0, (c0, c1) in enumerate(((3, 10), (5, 133), (4, 6))):
+                live = act[r0::4, 0] > 0
+                assert bool((first[r0::4, c0] != 0)[live].all())
+                assert not bool((first[r0::4, c1] != 0)[live].any())
+    assert T_CD.CD_STEPS[kp].launches - before == (
+        2 * len(shapes) + (1 if ties else 0))
 
 
 @pytest.mark.parametrize("rows,d,k,conv_every,offset", [

@@ -1,7 +1,9 @@
 """lasso_tpu_torch's fused OMP kernels on a CUDA card: K6a ``omp_select``
 on the tensor cores, K6b ``omp_orth`` (the streamed kernel and, past D =
 1024, the warp-strided one) and K6d ``omp_orth_cgs2`` (the ``gs='cgs2'``
-step) against their plain versions, and the launches of a cgs2 solve.
+step: the resident block kernel and, past D = 1024 or for D not a multiple
+of 128, the warp-strided one) against their plain versions, and the
+launches of a cgs2 solve.
 
 Every test here is marked ``gpu`` and skips where there is no card. This
 file imports neither JAX nor the JAX package; on a machine that has only
@@ -154,48 +156,87 @@ def test_orth_kernel_matches_plain(N, D, T, tol):
         assert not bool(st.valid[8:16, 4:].any())
 
 
-@pytest.mark.parametrize("T", [13, 64])
-def test_cgs2_kernel_matches_plain(T):
-    """K6d at step T - 1 from one state (idx, valid and masks equal; r, its
-    kept split, q_k, R's column and d_k at rtol 2e-4 / atol 1e-5), and a
-    whole cgs2 solve with rows that freeze under tol against the plain
-    solve."""
+def _omp_case(N, D, K, duplicate):
+    """omp_problem with rows 8-15 3-sparse over W (they freeze under tol by
+    step 4); with ``duplicate`` atoms 0 and 1 both e_0 and rows 0-7 3 e_0,
+    so that step 0 takes atom 0 and leaves r = 0, and step 1 takes the
+    duplicate, whose Gram-Schmidt remainder is exactly 0 and hits the
+    pivot floor (R's diagonal 1e-6)."""
+    x, W = omp_problem(N + D, N, D, K)
+    if duplicate:
+        W[:, :2] = 0.0
+        W[0, :2] = 1.0
+        x[:8] = 0.0
+        x[:8, 0] = 3.0
+    z = np.zeros((8, K), np.float32)
+    z[:, 4:7] = np.random.default_rng(D).standard_normal((8, 3))
+    x[8:16] = z @ W.T
+    return x, W
+
+
+# K6d's cases: (N, D, T, tol, duplicated atom); the resident kernel keeps
+# min(k, rows) rows in shared memory, rows = 55 at D = 512, T = 64 and 27
+# at D = 1024, T = 40, so the later steps read the rest from global memory;
+# D = 1152 and D = 192 take the kept warp kernel
+CGS2_CASES = {
+    "resident_d128_tol": [(1001, 128, 13, 1e-6, False)],
+    "resident_d512_t64": [(600, 512, 64, None, False)],
+    "resident_d1024_past_rows_dup": [(130, 1024, 40, None, True)],
+    "kept_d1152_d192": [(70, 1152, 6, None, True), (67, 192, 9, 1e-6, False)],
+}
+
+
+@pytest.mark.parametrize("case", list(CGS2_CASES))
+def test_cgs2_kernel_matches_plain(case):
+    """K6d against its plain version at every step of a solve, each step
+    from one state (idx, valid and masks equal; r, its kept split, q_k, R's
+    column and d_k at rtol 2e-4 / atol 1e-5), then a whole cgs2 solve on
+    the card against the plain solve (validity equal, codes by the
+    equivalence rule). N is ragged; under tol rows 8-15 freeze by step 4;
+    the duplicated atom's step hits the pivot floor."""
     _need_card()
-    x, W = omp_problem(T, 600, 256, 512)
-    z = np.zeros((8, 512), np.float32)
-    z[:, 1:4] = np.random.default_rng(1).standard_normal((8, 3))
-    x[:8] = z @ W.T
-    xc, Wc = t(x).cuda(), t(W).cuda()
-    wsplit, invn = T_O.select_operands(Wc), T_O.inverse_norms(Wc)
-    wt = Wc.T.contiguous()
-    st = T_O.omp_init_state(xc, 512, T)
-    for k in range(T - 1):
-        T_O.omp_select(st, wsplit, invn)
-        T_O.omp_orth(st, wt, k, gs="cgs2")
-    T_O.omp_select(st, wsplit, invn)
-    twin = T_O.OmpState(**{f: getattr(st, f).clone()
-                           for f in st.__dataclass_fields__})
-    T_O.omp_orth(st, wt, T - 1, gs="cgs2")
-    T_O.omp_orth_plain(twin, wt, T - 1, gs="cgs2")
-    k = T - 1
-    for a, c in ((st.idx[:, k], twin.idx[:, k]), (st.sel, twin.sel),
-                 (st.valid[:, k], twin.valid[:, k])):
-        assert torch.equal(a, c)
-    for a, c in ((st.r, twin.r), (st.Q[:, k], twin.Q[:, k]),
-                 (st.R[:, k, :k + 1], twin.R[:, k, :k + 1]),
-                 (st.d[:, k], twin.d[:, k]),
-                 (st.rb.float().sum(0), twin.rb.float().sum(0))):
-        np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
-    got = T_O.fused_omp_solve(xc, Wc, T, tol=1e-6, gs="cgs2")
-    want = T_O.fused_omp_solve_plain(xc, Wc, T, tol=1e-6, gs="cgs2")
-    np.testing.assert_array_equal(n(got[1]), n(want[1]))
-    assert n(got[1])[:8].sum(axis=1).max() <= 4
+    K = 256
+    for N, D, T, tol, dup in CGS2_CASES[case]:
+        x, W = _omp_case(N, D, K, dup)
+        xc, Wc = t(x).cuda(), t(W).cuda()
+        wsplit, invn = T_O.select_operands(Wc), T_O.inverse_norms(Wc)
+        wt = Wc.T.contiguous()
+        st = T_O.omp_init_state(xc, K, T)
+        before = T_O.OMP_ORTH["cgs2"].launches
+        for k in range(T):
+            T_O.omp_select(st, wsplit, invn)
+            twin = T_O.OmpState(**{f: getattr(st, f).clone()
+                                   for f in st.__dataclass_fields__})
+            T_O.omp_orth(st, wt, k, tol, gs="cgs2")
+            T_O.omp_orth_plain(twin, wt, k, tol, gs="cgs2")
+            for a, c in ((st.idx[:, k], twin.idx[:, k]), (st.sel, twin.sel),
+                         (st.valid[:, k], twin.valid[:, k]),
+                         (st.active, twin.active)):
+                assert torch.equal(a, c)
+            for a, c in ((st.r, twin.r), (st.Q[:, k], twin.Q[:, k]),
+                         (st.R[:, k, :k + 1], twin.R[:, k, :k + 1]),
+                         (st.d[:, k], twin.d[:, k]),
+                         (st.rb.float().sum(0), twin.rb.float().sum(0))):
+                np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
+        assert T_O.OMP_ORTH["cgs2"].launches - before == T
+        if dup:
+            assert bool((st.idx[:8, :2] == torch.tensor(
+                [0, 1], device="cuda", dtype=torch.int32)).all())
+            np.testing.assert_allclose(n(st.R[:8, 1, 1]), 1e-6, rtol=1e-6)
+            assert not bool(st.Q[:8, 1].any())
+        if tol is not None:
+            assert not bool(st.valid[8:16, 4:].any())
+        got = T_O.fused_omp_solve(xc, Wc, T, tol=tol, gs="cgs2")
+        want = T_O.fused_omp_solve_plain(xc, Wc, T, tol=tol, gs="cgs2")
+        np.testing.assert_array_equal(n(got[1]), n(want[1]))
 
-    def codes(idx, z_s):
-        zz = torch.zeros((idx.shape[0], 512), device="cuda")
-        return n(zz.scatter_add_(1, idx.long(), z_s))
+        def codes(idx, z_s):
+            zz = torch.zeros((idx.shape[0], K), device="cuda")
+            return n(zz.scatter_add_(1, idx.long(), z_s))
 
-    assert_equivalent(x, W, codes(want[0], want[2]), codes(got[0], got[2]))
+        if not dup:   # a dependent pair's split follows the floor's rounding
+            assert_equivalent(x, W, codes(want[0], want[2]),
+                              codes(got[0], got[2]))
 
 
 def test_cgs2_solve_launches():
