@@ -110,9 +110,12 @@ before the last line is printed.
    duplicated atoms, finite codes and the per-row rss (rtol 1e-3) on every
    row, since the pivot floor leaves the split of weight across a
    dependent pair to rounding; K7 ``chol_append_solve`` of ``csrc/chol.cu``
-   over T appends from the identity (T=16 and 64, in place and into a
-   new factor, every fifth system the identity) at rtol 2e-4 / atol
-   1e-5. Then each entry at the headline width (16384x512->2048, T=64,
+   over T appends from the identity (T=16 and 64 on its panel kernel,
+   T=72 on its sweep kernel, in place and into a new factor, every fifth
+   system the identity) at rtol 2e-4 / atol 1e-5; K6c bit for bit its
+   plain version on systems with frozen samples at T=64 with R one float
+   off a 16-byte boundary (its staged kernel's 4-byte copies) and at
+   T=136 (its warp kernel). Then each entry at the headline width (16384x512->2048, T=64,
    ``benchmarks/omp_fused_bench.py``'s problem): one solve in f32, one in
    bf16 and one in f32 with ``gs='cgs2'``, with CUDA events around every
    launch, each held to the plain solve of its precision and Gram-Schmidt
@@ -120,13 +123,15 @@ before the last line is printed.
    1e-6; bound: one bf16 product on the tensor cores, three in f32), K6b's
    and K6d's step 32 from one state (idx, valid and masks equal; r, q_k,
    R's column, d_k and r's bf16 split at rtol 2e-4 / atol 1e-5) and K6c on
-   the f32 solve's state (rtol 2e-4 / atol 1e-5) against their plain
-   versions, K6b's and K6d's rows with their times at steps 0, 32 and 63
+   the f32 solve's state (bit for bit) against their plain versions, with
+   the kernels' tiers named, K6b's and K6d's rows with their times at
+   steps 0, 32 and 63
    beside the mean over the 64 steps; K7 over 64 appends against its plain
    version (rtol 2e-4 / atol 1e-5), and in place against a new factor at
    k=32. The plain versions are timed by CUDA-graph replays, which leave
-   out the host's time to enqueue their many small ops; K6c's library
-   time is ``torch.linalg.solve_triangular`` on the same R and d.
+   out the host's time to enqueue their many small ops; K6c's time is the
+   mean of 20 launches on the f32 solve's state, its library time
+   ``torch.linalg.solve_triangular`` on the same R and d.
 11. The OMP slice at that width through ``sparse_encode(algorithm='omp',
    n_nonzero_coefs=64)``: 'auto' (must take the fused kernels: 64
    ``omp_select_f32`` and ``omp_orth`` launches and one ``omp_backsub``),
@@ -1500,6 +1505,33 @@ def append_rows(M, rhs, k):
     return g, b
 
 
+def backsub_case(n, T, aligned, seed):
+    """An OMP state holding only what K6c reads: R with well-conditioned
+    upper-triangular systems by columns (NaN past each diagonal, which K6c
+    never reads), every fourth sample frozen from slot T // 3 on (columns
+    e_j, d_j = 0, not valid), a fifth of the other slots not valid; R one
+    float past a 16-byte boundary unless ``aligned``."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    Rm = torch.randn(n, T, T, generator=g, device=DEV) / T
+    jj = torch.arange(T, device=DEV)
+    Rm[:, jj, jj] = 1.0 + torch.randn(n, T, generator=g, device=DEV).abs()
+    Rm[:, jj[:, None] < jj[None, :]] = float("nan")
+    d = torch.randn(n, T, generator=g, device=DEV)
+    valid = (torch.rand(n, T, generator=g, device=DEV) > 0.2).float()
+    frozen = torch.arange(n, device=DEV) % 4 == 0
+    f0 = T // 3
+    Rm[frozen, f0:] = torch.where(jj[None, :] <= jj[f0:, None],
+                                  torch.eye(T, device=DEV)[f0:], Rm[frozen,
+                                                                    f0:])
+    d[frozen, f0:] = 0.0
+    valid[frozen, f0:] = 0.0
+    buf = torch.empty(n * T * T + 1, device=DEV)
+    R = buf[int(not aligned):][:n * T * T].view(n, T, T)
+    R.copy_(Rm)
+    return O.OmpState(r=d, rb=None, sel=None, active=None, Q=None, R=R, d=d,
+                      valid=valid, idx=None, pval=None, pidx=None)
+
+
 def phase_omp_kernels():
     """K6 (fused OMP: omp_select, omp_orth, omp_orth_cgs2, omp_backsub)
     and K7 (chol_append_solve) against their plain versions on the card,
@@ -1536,7 +1568,7 @@ def phase_omp_kernels():
               f"{finite}")
         check(ok and v_same and finite and (tol is None or frozen >= 24),
               f"fused OMP {kp} gs={gs} T={T} tol={tol} duplicated={dup}")
-    for T, B_ in ((16, 1000), (64, 1000)):
+    for T, B_ in ((16, 1000), (64, 1000), (72, 100)):
         M, rhs = pd_rows(B_, T, seed=T)
         V = torch.eye(T, device=DEV)[:, :, None].repeat(1, 1, B_)
         Vp = V.clone()
@@ -1548,10 +1580,17 @@ def phase_omp_kernels():
             Vp, z_p = B.cholesky_append_solve_lanes_plain(Vp, g, b, kk)
             for a, c in ((V, Vp), (fresh, Vp), (z, z_p), (z_f, z_p)):
                 worst = max(worst, rel_excess(a, c, 2e-4))
-        print(f"[10] chol_append_solve T={T} B={B_}, {T} appends in place "
-              f"and into a new factor: max(|err| - 2e-4 |plain|) "
-              f"{worst:.3e} (atol 1e-5)")
+        print(f"[10] chol_append_solve T={T} B={B_} ({B.append_tier(T, B_)} "
+              f"tier), {T} appends in place and into a new factor: "
+              f"max(|err| - 2e-4 |plain|) {worst:.3e} (atol 1e-5)")
         check(worst <= 1e-5, f"chol_append_solve T={T}")
+    for n_, T, aligned in ((1001, 64, False), (45, 136, True)):
+        state = backsub_case(n_, T, aligned, seed=T)
+        same = bool(torch.equal(O.omp_backsub(state),
+                                O.omp_backsub_plain(state)))
+        print(f"[10] omp_backsub N={n_} T={T} ({O.backsub_tier(state)} "
+              f"tier), frozen samples: bit for bit {same}")
+        check(same, f"omp_backsub T={T}")
     print("[10] launch counts:", json.dumps(_cuda.launch_counts()))
 
     # at the headline width: one solve with events around every launch in
@@ -1671,17 +1710,17 @@ def phase_omp_kernels():
               f"state, max(|err| - 2e-4 |plain|) {worst:.3e} (atol 1e-5), "
               f"idx, valid and masks equal {exact}; no PyTorch call does "
               f"Gram-Schmidt with the freeze: library null)")
-    # K6c on the f32 solve's final state against its plain version (rtol
-    # 2e-4 / atol 1e-5) and the library's triangular solve: R's upper
-    # triangle, d and valid read, z written. The state keeps R transposed
-    # (row j holds column j), a lower triangle: z^T L = d^T.
+    # K6c on the f32 solve's final state, bit for bit its plain version,
+    # and the library's triangular solve: R's upper triangle, d and valid
+    # read, z written. The state keeps R transposed (row j holds column j),
+    # a lower triangle: z^T L = d^T. ms: the mean of 20 launches on it.
     kern = solve["f32", "mgs"]
     fin = kern[0]
     valid = fin.valid > 0
     z_k, z_p = O.omp_backsub(fin), O.omp_backsub_plain(fin)
     e_back = float((z_k - z_p).abs().max())
-    worst = rel_excess(z_k, z_p, 2e-4)
-    check(worst <= 1e-5, "omp_backsub at the headline")
+    exact = bool(torch.equal(z_k, z_p))
+    check(exact, "omp_backsub at the headline, bit for bit")
 
     def library_backsub():
         return torch.linalg.solve_triangular(fin.R, fin.d[:, None, :],
@@ -1695,15 +1734,17 @@ def phase_omp_kernels():
     rows["omp_backsub"] = {
         "name": "omp_backsub", "route": "cuda", "source": OMP_SOURCE,
         "replaces": OMP_REPLACES, "launches": None, "max_abs_err": e_back,
-        "ms": kern[4], "plain_ms": graph_ms(lambda: O.omp_backsub_plain(fin)),
+        "ms": cuda_ms(lambda: O.omp_backsub(fin)),
+        "plain_ms": graph_ms(lambda: O.omp_backsub_plain(fin)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": cuda_ms(library_backsub)}
-    print(f"[10] {json.dumps(rows['omp_backsub'])} (one launch a solve; "
+    print(f"[10] {json.dumps(rows['omp_backsub'])} ({O.backsub_tier(fin)} "
+          f"tier; one launch a solve, {kern[4]:.4f} ms in the timed solve; "
           f"plain_ms: CUDA-graph replays; max_abs_err: z on the f32 solve's "
-          f"state, max(|err| - 2e-4 |plain|) {worst:.3e} (atol 1e-5); "
-          f"library: torch.linalg.solve_triangular on the same R and d, "
-          f"timed only, {e_lib:.3e} from the kernel)")
+          f"state, bit for bit {exact}; library: "
+          f"torch.linalg.solve_triangular on the same R and d, timed only, "
+          f"{e_lib:.3e} from the kernel)")
     del solve, kern, fin, z_k, z_p
 
     # K7 at B = N, T = 64: the appends of one solve from the identity, in

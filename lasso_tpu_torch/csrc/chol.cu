@@ -17,26 +17,55 @@
 //   z    = V^T (V b)
 //
 // K7 chol_append_solve: lane l of every warp of a block owns sample
-// blockIdx.x * 32 + l, so each load of V[i, j, :] is one coalesced 128-byte
-// access for 32 samples; the 8 warps of the block split the rows (for y and
-// t = V b) and the columns (for u and z) of the 32 samples between them,
-// i = p, p + 8, ... for warp p. Every row or column is a register sum; y
-// and then t pass between the warps through shared memory ([T][32] floats),
-// and so does the new row k, which goes to V only at the end: the loads of
-// V (rows below k) and its one store never touch the same element.
-// Only the live block is read: V's lower triangle in rows 0..k (V is lower
-// triangular and its rows past k are identity rows, which the appends from
-// the identity keep so), g[0..k] and b[0..k]. Rows past k contribute
-// z[j] = b[j], so a zero-padded slot solves to exactly 0. Only row k of V is
-// written, in place (the JAX call aliases V in and out,
-// batched_cholesky.py:318); a caller that wants a new factor copies V first.
+// blockIdx.x * 32 + l. The new row k goes to V only at the end: the loads
+// of V (rows below k) and its one store never touch the same element.
+// Only the live block is read: V's lower triangle in rows 0..k-1 (V is
+// lower triangular and its rows past k are identity rows, which the
+// appends from the identity keep so), g[0..k] and b. Rows past k
+// contribute z[j] = b[j], so a zero-padded slot solves to exactly 0. Only
+// row k of V is written, in place (the JAX call aliases V in and out,
+// batched_cholesky.py:318); a caller that wants a new factor copies V
+// first.
 //
 // What bounds it at B=16384, T=64: the live lower triangle at step k is
 // k(k+1)/2 floats a sample, 134 MB at k=63, and the whole of V 268 MB
 // (0.08 ms at 3.35 TB/s); its 4 k^2 multiply-adds a sample are 0.3 GFLOP at
 // k=63, 0.005 ms at 67 TFLOP/s. So it is bound by the bytes of the live
-// triangle, which it reads twice per pass (once for the row sums, once for
-// the column sums; the second read finds much of it in L2).
+// triangle, read once.
+//
+// Two tiers, both one lane a sample (32 samples a block, so that each load
+// of V[i, j, :] is one coalesced 128-byte access) and any B >= 1:
+//
+// T <= 64, chol_append_panel_kernel<T / 8>: each element of the live
+// triangle is read from device memory once. Warp w of 8 owns the columns
+// j = 8 c + w and keeps in registers their g_j and b_j, the column sums
+// u_j and s_j (s = t^T V, z's sum) and, for a panel of 8 rows, its entries
+// of those rows (the panels unrolled, so that a warp loads and multiplies
+// only the entries left of the panel's diagonal block, with no index test
+// but the diagonal block's). A panel's rows go through three stages: the
+// warps' partial row sums of y and t over their columns, exchanged in
+// shared memory and summed (warp r sums row r over the warps, in warp
+// order), then u_j += V[i, j] y_i and s_j += V[i, j] t_i from the panel's
+// registers, rows ascending. So y and t need no second read of the rows
+// and u and s none of the columns; two __syncthreads a panel. u_j and s_j
+// are sums in ascending i, as in the sweep kernel; y_i and t_i are the sum
+// over the warps of each warp's sum in ascending j. Then the pivot,
+// row k = [-u / lkk, 1 / lkk, 0 ...], t_k = row k . b (the warps' partials
+// exchanged once more) and z_j = s_j + row_k[j] t_k for j <= k, b_j past k.
+// At 256 threads and at most 128 registers a thread two blocks share an
+// SM, and each warp issues a panel's loads (up to 64 a lane) together. On
+// an NVIDIA H100 80GB HBM3 at 700 W it takes 0.031 ms on average over the
+// 64 appends of an OMP solve at B=16384 (0.075 for the sweep kernel) and
+// 0.062 at k=63, where V's reads alone run at about 2.9 TB/s (PERF.md;
+// scripts/chol_kernel_parts.py).
+//
+// T = 72..904, chol_append_sweep_kernel (the first kernel, kept as the
+// tier for the widths whose panels would not fit in registers): the 8
+// warps of the block split the rows (for y and t = V b) and the columns
+// (for u and z) of the 32 samples between them, i = p, p + 8, ... for warp
+// p, and sweep the live triangle four times. Every row or column is a
+// register sum; y and then t pass between the warps through shared memory
+// ([T][32] floats), and so does the new row k.
 //
 // Each C entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
@@ -52,7 +81,7 @@ constexpr int SB = 32;   // samples per block: one per lane
 constexpr int PW = 8;    // warps per block, splitting rows and columns
 
 __global__ void __launch_bounds__(SB * PW)
-    chol_append_solve_kernel(float* __restrict__ v,
+    chol_append_sweep_kernel(float* __restrict__ v,
                              const float* __restrict__ g,
                              const float* __restrict__ b,
                              float* __restrict__ z, int k, int T, int B) {
@@ -138,21 +167,153 @@ __global__ void __launch_bounds__(SB * PW)
       v[s + k * rowT + (size_t)j * B] = rk[j * SB + lane];
 }
 
+constexpr int PR = 8;   // rows a panel of the panel kernel
+
+template <int TC>
+__global__ void __launch_bounds__(SB * PW, 2)
+    chol_append_panel_kernel(float* __restrict__ v,
+                             const float* __restrict__ g,
+                             const float* __restrict__ b,
+                             float* __restrict__ z, int k, int B) {
+  constexpr int T = 8 * TC;
+  // the warps' partial row sums of a panel, (y, t) [warp][row][lane], then
+  // the rows' (y, t) [row][lane]
+  __shared__ float2 part[PW][PR][SB];
+  __shared__ float2 rows[PR][SB];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int s = blockIdx.x * SB + lane;
+  const bool live = s < B;
+  const size_t rowT = (size_t)T * B;   // stride of one row of V
+  const float* vw = v + s + (size_t)w * B;   // column w of row 0
+
+  // the warp's columns j = 8 c + w: g_j for j < k (the rows' sums reach
+  // no further), b_j for every j
+  float gw[TC], bw[TC], u[TC], sc[TC];
+#pragma unroll
+  for (int c = 0; c < TC; ++c) {
+    const int j = 8 * c + w;
+    gw[c] = live && j < k ? g[(size_t)j * B + s] : 0.f;
+    bw[c] = live ? b[(size_t)j * B + s] : 0.f;
+    u[c] = 0.f;
+    sc[c] = 0.f;
+  }
+
+  // panel p: rows i = 8 p + r below k; of the warp's columns, those with
+  // c < p lie below the diagonal, and c = p holds it (j <= i for w <= r).
+  // The panels are unrolled, so no load or multiply-add is issued for a
+  // column right of the panel's diagonal block.
+  float yy = 0.f;
+#pragma unroll
+  for (int p = 0; p < TC; ++p) {
+    if (PR * p >= k) break;
+    float vr[TC][PR];
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      const int i = PR * p + r;
+      const float* vi = vw + i * rowT;
+      const bool row = live && i < k;
+#pragma unroll
+      for (int c = 0; c <= p; ++c)
+        vr[c][r] = row && (c < p || w <= r) ? vi[(size_t)(8 * c) * B] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      float yp = 0.f, tp = 0.f;
+#pragma unroll
+      for (int c = 0; c <= p; ++c) {
+        yp = fmaf(vr[c][r], gw[c], yp);
+        tp = fmaf(vr[c][r], bw[c], tp);
+      }
+      part[w][r][lane] = make_float2(yp, tp);
+    }
+    __syncthreads();
+    {   // warp w sums row w over the warps (PR == PW)
+      float ya = 0.f, ta = 0.f;
+#pragma unroll
+      for (int q = 0; q < PW; ++q) {
+        const float2 pq = part[q][w][lane];
+        ya += pq.x;
+        ta += pq.y;
+      }
+      rows[w][lane] = make_float2(ya, ta);
+    }
+    __syncthreads();   // also: the next panel's partials overwrite part
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      const float2 yt = rows[r][lane];
+      yy = fmaf(yt.x, yt.x, yy);   // rows past k give 0
+#pragma unroll
+      for (int c = 0; c <= p; ++c) {
+        u[c] = fmaf(vr[c][r], yt.x, u[c]);
+        sc[c] = fmaf(vr[c][r], yt.y, sc[c]);
+      }
+    }
+  }
+
+  const float gkk = live ? g[(size_t)k * B + s] : 1.f;
+  const float pivot =
+      fmaxf(__fsub_rn(gkk, yy), __fadd_rn(__fmul_rn(1e-6f, gkk), 1e-30f));
+  const float inv = __frsqrt_rn(pivot);
+  // row k over the warp's columns, and t_k = row k . b over them
+  float rk[TC], tkp = 0.f;
+#pragma unroll
+  for (int c = 0; c < TC; ++c) {
+    const int j = 8 * c + w;
+    rk[c] = j < k ? __fmul_rn(-u[c], inv) : (j == k ? inv : 0.f);
+    if (j <= k) tkp = fmaf(rk[c], bw[c], tkp);
+  }
+  part[w][0][lane].x = tkp;   // the last panel's reads of part are done
+  __syncthreads();
+  float tk = 0.f;
+#pragma unroll
+  for (int q = 0; q < PW; ++q) tk += part[q][0][lane].x;
+  if (live)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const int j = 8 * c + w;
+      z[(size_t)j * B + s] = j <= k ? fmaf(rk[c], tk, sc[c]) : bw[c];
+      v[s + k * rowT + (size_t)j * B] = rk[c];
+    }
+}
+
+template <int TC>
+int launch_append_panel(float* v, const float* g, const float* b, float* z,
+                        int k, int B, cudaStream_t stream) {
+  chol_append_panel_kernel<TC><<<(B + SB - 1) / SB, SB * PW, 0, stream>>>(
+      v, g, b, z, k, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// v [T, T, B], row k written in place; g, b, z [T, B]; 0 <= k < T.
+// v [T, T, B], row k written in place; g, b, z [T, B]; 0 <= k < T;
+// T a multiple of 8 up to 904: the panel kernel to T = 64, the sweep
+// kernel above.
 extern "C" int chol_append_solve(float* v, const float* g, const float* b,
                                  float* z, int k, int T, int B,
                                  void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (T % 8 != 0 || k < 0 || k >= T || B < 1)
+    return (int)cudaErrorInvalidValue;
+  if (T <= 64) switch (T / 8) {
+      case 1: return launch_append_panel<1>(v, g, b, z, k, B, st);
+      case 2: return launch_append_panel<2>(v, g, b, z, k, B, st);
+      case 3: return launch_append_panel<3>(v, g, b, z, k, B, st);
+      case 4: return launch_append_panel<4>(v, g, b, z, k, B, st);
+      case 5: return launch_append_panel<5>(v, g, b, z, k, B, st);
+      case 6: return launch_append_panel<6>(v, g, b, z, k, B, st);
+      case 7: return launch_append_panel<7>(v, g, b, z, k, B, st);
+      default: return launch_append_panel<8>(v, g, b, z, k, B, st);
+    }
   const size_t smem = (size_t)(2 * T + PW) * SB * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chol_append_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chol_append_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  chol_append_solve_kernel<<<(B + SB - 1) / SB, SB * PW, smem,
-                             (cudaStream_t)stream>>>(v, g, b, z, k, T, B);
+  chol_append_sweep_kernel<<<(B + SB - 1) / SB, SB * PW, smem, st>>>(
+      v, g, b, z, k, T, B);
   return (int)cudaGetLastError();
 }
 

@@ -75,8 +75,32 @@
 //                    k dot products of a pass four to a sweep over w, each
 //                    row read from device memory in all four sweeps.
 //                    Everything else is K6b's.
-//   K6c omp_backsub: one warp per sample, the column-oriented
-//                    back-substitution R z = d once after step T.
+//   K6c omp_backsub: the column-oriented back-substitution R z = d once
+//                    after step T: z_j = rhs_j / R_jj, then rhs_i -= z_j
+//                    R_ij for i < j, j = T-1 .. 0, each quotient, product
+//                    and difference correctly rounded as in its plain
+//                    version, so that z is bit for bit the plain
+//                    version's. Up to T = 128
+//                    (omp_backsub_staged_kernel<RP, VEC>) a persistent
+//                    warp takes one sample at a time: its live columns
+//                    (column j's first j + 1 floats, rounded up to 16
+//                    bytes) come into shared memory by one bulk copy a
+//                    column, completing on an mbarrier (4-byte cp.async
+//                    where T % 4 != 0 or R is not 16-byte aligned), and d
+//                    and valid are loaded a sample ahead, so that no step
+//                    of the chain waits for device memory. Lane l holds
+//                    rows 32 m + l of rhs in registers; every lane repeats
+//                    the last update of rhs_{j-1}, so that the chain
+//                    z_j -> rhs_{j-1} -> z_{j-1} needs no shuffle (the
+//                    shuffle of rhs_{j-2} runs beside the next divide). A
+//                    sample's columns take 8.7 KB at T = 64, so 23 warps
+//                    share an SM and one warp's copies run under the
+//                    others' chains (one buffer a warp: two, with the next
+//                    sample's copies under this one's chain, halve the
+//                    warps and were slower). Past T = 128
+//                    omp_backsub_warp_kernel, the first kernel, reads each
+//                    column from device memory on the chain, rhs in
+//                    shared memory.
 //
 // What bounds it at N=16384, D=512, K=2048, T=64. K6a: 2NDK = 34.4 GFLOP a
 // launch in bf16, three times that in f32, at the 989 TFLOP/s of bf16 on
@@ -99,7 +123,12 @@
 // K6d has the same bound; its resident kernel reads the k rows from device
 // memory once and sweeps them four times in shared memory: 0.506 ms a step
 // on average over the 64 steps on an NVIDIA H100 80GB HBM3 at 700 W (1.153
-// at step 63, where two blocks share an SM; PERF.md).
+// at step 63, where two blocks share an SM; PERF.md). K6c reads R's live
+// triangle (rounded up to 16 bytes), d and valid and writes z: 156 MB,
+// 0.047 ms at 3.35 TB/s; its chains are 64 dependent divides a sample.
+// Its staged kernel takes 0.074 ms on an NVIDIA H100 80GB HBM3 at 700 W
+// (0.162 for the warp kernel), of which the copies alone take 0.069 and
+// the chains alone 0.050 (scripts/omp_kernel_parts.py; PERF.md).
 //
 // Each C entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
@@ -853,14 +882,14 @@ __global__ void __launch_bounds__(CWARPS * 32)
   }
 }
 
-// K6c: R z = d by columns, j = T-1 .. 0; rhs is the warp's [T] slice of
-// shared memory. A frozen slot has R column e_j and d_j = 0, so it solves
-// to exactly 0.
+// K6c past T = 128: R z = d by columns, j = T-1 .. 0; rhs is the warp's
+// [T] slice of shared memory. A frozen slot has R column e_j and d_j = 0,
+// so it solves to exactly 0.
 __global__ void __launch_bounds__(OWARPS * 32)
-    omp_backsub_kernel(const float* __restrict__ R,
-                       const float* __restrict__ d,
-                       const float* __restrict__ valid,
-                       float* __restrict__ z, int N, int T) {
+    omp_backsub_warp_kernel(const float* __restrict__ R,
+                            const float* __restrict__ d,
+                            const float* __restrict__ valid,
+                            float* __restrict__ z, int N, int T) {
   extern __shared__ float rsm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = blockIdx.x * OWARPS + warp;
@@ -877,6 +906,151 @@ __global__ void __launch_bounds__(OWARPS * 32)
       z[(size_t)n * T + j] = valid[(size_t)n * T + j] > 0.f ? zj : 0.f;
     __syncwarp();
   }
+}
+
+// K6c's staged layout of a sample, for TP = T rounded up to the kernel's
+// rows (columns past T are an identity, e_j): column j's first j + 1
+// floats rounded up to VEC floats at off(j), TP columns in a stride of
+// whole 128-byte lines
+template <int VEC>
+__host__ __device__ constexpr int backsub_offset(int j) {
+  return VEC == 1 ? j * (j + 1) / 2
+                  : 8 * (j / 4) * (j / 4 + 1) + 4 * (j % 4) * (j / 4 + 1);
+}
+
+template <int TP, int VEC>
+__host__ __device__ constexpr int backsub_stride() {
+  return (backsub_offset<VEC>(TP) + 31) / 32 * 32;
+}
+
+// one sample's back-substitution on its staged columns cs (row 32 m + g
+// of lane g in rhs[m]; z_j to zr of row j's lane), j = TP-1 .. 0: z_j =
+// rhs_j / R_jj, then rhs_i -= z_j R_ij for i < j. Every lane keeps rhs_j
+// (cur) and rhs_{j-1} as it stands before step j (pre), so that the chain
+// z_j -> rhs_{j-1} -> z_{j-1} runs in each lane's registers: rhs_{j-1}'s
+// last update is repeated by every lane (the same operations on the same
+// values as its own lane's), and the shuffle of rhs_{j-2} from its lane
+// overlaps the next divide. The steps are unrolled, so that every offset
+// into the columns is a constant.
+template <int RP, int VEC>
+__device__ __forceinline__ void backsub_chain(const float* cs, int lane,
+                                              float (&rhs)[RP],
+                                              float (&zr)[RP]) {
+  constexpr int TP = 32 * RP;
+  float cur = __shfl_sync(0xffffffffu, rhs[RP - 1], 31);
+  float pre = __shfl_sync(0xffffffffu, rhs[(TP - 2) / 32], (TP - 2) % 32);
+#pragma unroll
+  for (int mj = RP - 1; mj >= 0; --mj)
+#pragma unroll
+    for (int jj = 31; jj >= 0; --jj) {
+      const int j = 32 * mj + jj;
+      const float* col = cs + backsub_offset<VEC>(j);
+      const float zj = __fdiv_rn(cur, col[j]);
+      if (lane == jj) zr[mj] = zj;
+      if (j >= 1) cur = __fsub_rn(pre, __fmul_rn(zj, col[j - 1]));
+#pragma unroll
+      for (int m = 0; m < mj; ++m)
+        rhs[m] = __fsub_rn(rhs[m], __fmul_rn(zj, col[32 * m + lane]));
+      if (lane < jj)
+        rhs[mj] = __fsub_rn(rhs[mj], __fmul_rn(zj, col[32 * mj + lane]));
+      if (j >= 2)   // row j - 2, from its lane
+        pre = __shfl_sync(0xffffffffu, rhs[(j - 2) / 32], (j - 2) % 32);
+    }
+}
+
+// K6c up to T = 128: a persistent warp a block, a sample at a time: each
+// warp walks samples blockIdx.x, blockIdx.x + gridDim.x, ..., copying a
+// sample's live columns into its shared memory by bulk copies (TMA, one a
+// column, completing on an mbarrier) where VEC = 4, by 4-byte cp.async
+// otherwise, once the previous sample's chain is done with it. rhs and z
+// stay in registers (lane g holds rows 32 m + g, m < RP). The chain runs
+// over TP = 32 RP rows: rows past T have an identity column and d = 0, so
+// they solve to exactly 0 and leave the others as they are (0 * 0
+// subtracted), and the unrolled chain has no test of T. The arithmetic is
+// the warp kernel's.
+template <int RP, int VEC>
+__global__ void __launch_bounds__(32)
+    omp_backsub_staged_kernel(const float* __restrict__ R,
+                              const float* __restrict__ d,
+                              const float* __restrict__ valid,
+                              float* __restrict__ z, int N, int T) {
+  constexpr int TP = 32 * RP;
+  extern __shared__ __align__(16) float bsm[];
+  uint64_t* bar_p = reinterpret_cast<uint64_t*>(bsm);
+  float* cs = bsm + 4;   // the staged columns
+  const int lane = threadIdx.x;
+  const uint32_t bar = wgp::smem_addr(bar_p);
+  if (VEC == 4 && lane == 0) {
+    wgp::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the identity columns past T, once
+  for (int j = T; j < TP; ++j)
+    for (int i = lane; i <= j; i += 32)
+      cs[backsub_offset<VEC>(j) + i] = i == j ? 1.f : 0.f;
+  __syncwarp();
+
+  // sample n's columns
+  auto stage = [&](int n) {
+    const float* Rn = R + (size_t)n * T * T;
+    if (VEC == 4) {
+      if (n >= N) return;
+      if (lane == 0)
+        wgp::mbar_expect_tx(bar, (uint32_t)(4 * backsub_offset<4>(T)));
+      __syncwarp();
+      wgp::fence_proxy_async();   // the chain's reads of cs are done
+      for (int j = lane; j < T; j += 32)   // column j, rounded up to 16 B
+        wgp::bulk_copy(wgp::smem_addr(cs + backsub_offset<4>(j)),
+                       Rn + (size_t)j * T, (uint32_t)(16 * (j / 4 + 1)),
+                       bar);
+    } else {
+      if (n < N)
+        for (int j = 0; j < T; ++j)
+          for (int c = lane; c <= j; c += 32)
+            wgp::cp_async4_fill(wgp::smem_addr(cs + backsub_offset<1>(j) + c),
+                                Rn + (size_t)j * T + c, 4);
+    }
+  };
+
+  // the lane's rows of d and valid for sample n (0 past T and N)
+  auto rows_of = [&](int n, float (&dv)[RP], float (&vv)[RP]) {
+#pragma unroll
+    for (int m = 0; m < RP; ++m) {
+      const int i = 32 * m + lane;
+      const bool in = n < N && i < T;
+      dv[m] = in ? d[(size_t)n * T + i] : 0.f;
+      vv[m] = in ? valid[(size_t)n * T + i] : 0.f;
+    }
+  };
+
+  stage(blockIdx.x);
+  float dn[RP], vn[RP];   // the next sample's rows, loaded a sample ahead
+  rows_of(blockIdx.x, dn, vn);
+  for (int n = blockIdx.x, t = 0; n < N; n += gridDim.x, ++t) {
+    float rhs[RP], vld[RP], zr[RP];
+#pragma unroll
+    for (int m = 0; m < RP; ++m) {
+      rhs[m] = dn[m];
+      vld[m] = vn[m];
+      zr[m] = 0.f;
+    }
+    rows_of(n + gridDim.x, dn, vn);
+    // this sample's columns have landed
+    if (VEC == 4)
+      wgp::mbar_wait(bar, t & 1);
+    else
+      wgp::cp_async_wait_all();
+    __syncwarp();
+    backsub_chain<RP, VEC>(cs, lane, rhs, zr);
+#pragma unroll
+    for (int m = 0; m < RP; ++m) {
+      const int i = 32 * m + lane;
+      if (i < T) z[(size_t)n * T + i] = vld[m] > 0.f ? zr[m] : 0.f;
+    }
+    __syncwarp();   // the chain's reads are done before the next copies
+    stage(n + gridDim.x);
+  }
+  if (VEC != 4) wgp::cp_async_wait_all();
 }
 
 // dynamic shared memory above 48 KB needs the kernel's opt-in
@@ -1066,14 +1240,63 @@ extern "C" int omp_orth_cgs2(const float* pval, const int* pidx, int nK,
   }
 }
 
-// z [N, T] = R^-1 d per sample, zero where valid is 0.
+namespace {
+
+template <int RP, int VEC>
+int launch_backsub_staged(const float* R, const float* d, const float* valid,
+                          float* z, int N, int T, cudaStream_t stream) {
+  const auto kernel = omp_backsub_staged_kernel<RP, VEC>;
+  // the barrier and a sample's columns; as many warps as fit on the card
+  const size_t smem =
+      16 + (size_t)backsub_stride<32 * RP, VEC>() * sizeof(float);
+  int e = smem_opt_in(kernel, smem);
+  if (e != 0) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  e = (int)cudaGetDevice(&dev);
+  if (e == 0)
+    e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
+  if (e == 0)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           32, smem);
+  if (e != 0) return e;
+  const int grid = N < sms * per_sm ? N : sms * per_sm;
+  kernel<<<grid < 1 ? 1 : grid, 32, smem, stream>>>(R, d, valid, z, N, T);
+  return (int)cudaGetLastError();
+}
+
+// a warp a sample: rows 32 m + lane, m < RP = ceil(T / 32)
+template <int VEC>
+int launch_backsub_rows(const float* R, const float* d, const float* valid,
+                        float* z, int N, int T, cudaStream_t stream) {
+  if (T <= 32) return launch_backsub_staged<1, VEC>(R, d, valid, z, N, T,
+                                                     stream);
+  if (T <= 64) return launch_backsub_staged<2, VEC>(R, d, valid, z, N, T,
+                                                     stream);
+  if (T <= 96) return launch_backsub_staged<3, VEC>(R, d, valid, z, N, T,
+                                                     stream);
+  return launch_backsub_staged<4, VEC>(R, d, valid, z, N, T, stream);
+}
+
+}  // namespace
+
+// z [N, T] = R^-1 d per sample, zero where valid is 0: the staged kernel
+// to T = 128 (16-byte copies where T % 4 == 0 and R is 16-byte aligned),
+// the warp kernel above.
 extern "C" int omp_backsub(const float* R, const float* d, const float* valid,
                            float* z, int N, int T, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  if (T <= 128) {
+    if (T % 4 == 0 && (uintptr_t)R % 16 == 0)
+      return launch_backsub_rows<4>(R, d, valid, z, N, T, st);
+    return launch_backsub_rows<1>(R, d, valid, z, N, T, st);
+  }
   const size_t smem = (size_t)OWARPS * T * sizeof(float);
-  const int e = smem_opt_in(omp_backsub_kernel, smem);
+  const int e = smem_opt_in(omp_backsub_warp_kernel, smem);
   if (e != 0) return e;
-  omp_backsub_kernel<<<(N + OWARPS - 1) / OWARPS, OWARPS * 32, smem,
-                       (cudaStream_t)stream>>>(R, d, valid, z, N, T);
+  omp_backsub_warp_kernel<<<(N + OWARPS - 1) / OWARPS, OWARPS * 32, smem,
+                            st>>>(R, d, valid, z, N, T);
   return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,10 @@ atom) into a bounded perturbation of the dependent direction instead of a
 NaN, and leaves healthy pivots unchanged. Rows of V past the appended block
 stay identity rows, so zero-padded right-hand-side slots solve to exactly
 zero. The layout is the JAX package's, batch innermost: V ``[T, T, B]``
-(``V[i]`` is row i as ``[T, B]``), g, b and z ``[T, B]``.
+(``V[i]`` is row i as ``[T, B]``), g, b and z ``[T, B]``. Up to T = 64 the
+kernel reads each element of the live triangle once (the row sums and
+the column sums from one load, a panel of rows at a time); above, the first
+kernel sweeps it four times (:func:`append_tier`).
 
 **The full solve (K8).** :func:`batch_cholesky_solve_lanes` solves a batch
 of PD systems ``A_s x_s = b_s`` (b ``[B, D]``, A ``[B, D, D]``, D <= 256)
@@ -51,9 +54,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 CHOL_APPEND_SOLVE = _cuda.CudaKernel("chol", "chol_append_solve",
                                      [_P] * 4 + [_I] * 3 + [_P])
 CHOL_SOLVE = _cuda.CudaKernel("chol", "chol_solve", [_P] * 3 + [_I] * 2 + [_P])
-# K7 keeps y (then t) and the new row of a block's 32 samples in shared
-# memory: (2 T + 8) x 32 floats within the 227 KB of one H100 block
+# K7's sweep kernel (T past 64) keeps y (then t) and the new row of a
+# block's 32 samples in shared memory: (2 T + 8) x 32 floats within the
+# 227 KB of one H100 block
 _MAX_T = (227 * 1024 // (32 * 4) - 8) // 2
+_PANEL_T = 64   # up to here K7's panel kernel reads the triangle once
+
+
+def append_tier(T, B):
+    """The K7 kernel that takes an append of width T: 'panel' up to T = 64
+    (each element of the live triangle read once, a panel of rows in
+    registers), 'sweep' above (the first kernel, four sweeps over
+    the triangle). Both take any B >= 1."""
+    return "panel" if T <= _PANEL_T else "sweep"
 
 
 def supports_lanes_append(T, B, dtype):

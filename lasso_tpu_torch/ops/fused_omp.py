@@ -31,7 +31,9 @@ of ``csrc/omp.cu`` from the host, then one back-substitution:
   rows of Q through shared memory by bulk copies, ahead of its chain, and
   K6d keeps them resident in a block's shared memory for its four
   sweeps);
-* :func:`omp_backsub` (K6c): ``R z = d``.
+* :func:`omp_backsub` (K6c): ``R z = d`` (up to T = 128 a sample's live
+  columns are staged in shared memory before its chain, so that no step
+  of the chain waits for device memory; :func:`backsub_tier`).
 
 Each entry launches its kernel on a CUDA tensor (or raises) and runs its
 plain version (``omp_select_plain``, ``omp_orth_plain``,
@@ -302,6 +304,19 @@ def omp_orth_plain(state, wt, k, tol=None, gs="mgs"):
     state.d[:, k] = dk
     state.r.copy_(r - dk[:, None] * qk)
     state.rb.copy_(torch.stack(split_bf16(state.r)))
+
+
+def backsub_tier(state):
+    """The K6c kernel that takes this state: 'staged' up to T = 128 (the
+    live columns copied into shared memory ahead of the chain, by 16-byte
+    copies where T % 4 == 0 and R is 16-byte aligned, else 4-byte ones),
+    'warp' above (the first kernel, each column read from device memory
+    on the chain)."""
+    T = state.d.shape[1]
+    if T > 128:
+        return "warp"
+    wide = T % 4 == 0 and state.R.data_ptr() % 16 == 0
+    return f"staged, {16 if wide else 4}-byte copies"
 
 
 def omp_backsub(state):

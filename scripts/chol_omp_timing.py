@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the batched Cholesky solve K8 (``batch_cholesky_solve_lanes``), the
-fused OMP steps K6b (``omp_orth``) and K6d (``omp_orth_cgs2``) and the
-greedy-CD kernel K3 (``cd_steps``) on one CUDA card, for this checkout and,
-with ``--other DIR``, for another checkout of the repository (for example
-the parent commit unpacked with ``git archive``).
+append K7 (``cholesky_append_solve_lanes``), the fused OMP steps K6b
+(``omp_orth``) and K6d (``omp_orth_cgs2``), the back-substitution K6c
+(``omp_backsub``) and the greedy-CD kernel K3 (``cd_steps``) on one CUDA
+card, for this checkout and, with ``--other DIR``, for another checkout of
+the repository (for example the parent commit unpacked with ``git
+archive``).
 
     python3 scripts/chol_omp_timing.py [--other DIR] [--ptxas]
 
@@ -17,16 +19,24 @@ says of each kernel), then:
   gate's limit), on A = Q Q^T + 2 I: x held to the plain version at rtol
   1e-4 / atol 1e-5, and the mean of 20 launches after 3 by CUDA events,
   behind about 20 ms of queued work;
+* K7 at B=16384, T=64: the 64 appends of random PD systems (every fifth
+  the identity) from the identity, in place, with events around every
+  launch: the mean over the 64 steps and the times at steps 0, 32 and
+  63; V and z of every step held to the plain version at rtol 2e-4 /
+  atol 1e-5 (and the kernel's tier, where the tree names it);
 * one fused OMP solve at benchmarks/omp_fused_bench.py's problem
   (16384x512->2048, T=64, f32), with events around every launch: K6b's
   mean over the 64 steps and its time at steps 0, 32 and 63, K6a's mean;
   the same with ``gs='cgs2'`` for K6d; K6b and K6d at step 32 held to
   their plain versions from one state (idx, valid and the masks equal; r,
-  q_k, R's column, d_k and r's split at rtol 2e-4 / atol 1e-5);
+  q_k, R's column, d_k and r's split at rtol 2e-4 / atol 1e-5); K6c on
+  the f32 solve's final state, bit for bit its plain version, timed as
+  K8 (and its tier);
 * solves/s of ``sparse_encode(algorithm='omp', n_nonzero_coefs=64)`` (the
-  fused route), of the same with ``solver='chol-full'`` (K8 once a step)
-  and of ``fused_omp_solve(gs='cgs2')`` (K6d once a step), the best of two
-  solves after one warm-up;
+  fused route, K6c once a solve), of the same with ``solver='chol'`` (K7
+  once a step), with ``solver='chol-full'`` (K8 once a step) and of
+  ``fused_omp_solve(gs='cgs2')`` (K6d once a step), the best of two solves
+  after one warm-up;
 * K3 ``cd_steps`` in f32 and bf16 at 16384x512->2048 (the headline) and
   16384x256->1024 (the training width): 8 steps a launch from b = x W,
   z = 0, every row active, alpha 0.2, tol 0 (phase 5's operands in
@@ -106,6 +116,47 @@ def measure(root, label, ptxas):
         out[f"chol_solve_{b_}x{d_}_excess"] = e
         del A, b, x
 
+    # K7: 64 appends from the identity, each between two events
+    g = torch.Generator(device=dev).manual_seed(7)
+    A = torch.randn(N, T, T, generator=g, device=dev)
+    M = A @ A.transpose(1, 2) / T + torch.eye(T, device=dev)
+    M[::5] = torch.eye(T, device=dev)
+    M = M.permute(1, 2, 0).contiguous()
+    rhs = torch.randn(T, N, generator=g, device=dev)
+    del A
+    gb = []
+    for k in range(T):
+        gk, bk = M[k].clone(), rhs.clone()
+        gk[k + 1:] = 0.0
+        bk[k + 1:] = 0.0
+        gb.append((gk, bk))
+    del M, rhs
+    V = torch.eye(T, device=dev)[:, :, None].repeat(1, 1, N)
+    B.cholesky_append_solve_lanes(V.clone(), *gb[0], 0)   # load the kernel
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(T + 1)]
+    zs = []
+    hold_the_card()
+    ev[0].record()
+    for k, (gk, bk) in enumerate(gb):
+        zs.append(B.cholesky_append_solve_lanes(V, gk, bk, k, out=V)[1])
+        ev[k + 1].record()
+    torch.cuda.synchronize()
+    append = [ev[k].elapsed_time(ev[k + 1]) for k in range(T)]
+    Vp = torch.eye(T, device=dev)[:, :, None].repeat(1, 1, N)
+    e = 0.0
+    for k, (gk, bk) in enumerate(gb):
+        Vp, zp = B.cholesky_append_solve_lanes_plain(Vp, gk, bk, k)
+        e = max(e, worst(zs[k], zp, 2e-4))
+    e = max(e, worst(V, Vp, 2e-4))
+    ok &= e <= 1e-5
+    out["chol_append_solve_mean_ms"] = sum(append) / T
+    out["chol_append_solve_steps_ms"] = {s: append[s] for s in (0, 32, T - 1)}
+    out["chol_append_solve_excess"] = e
+    tier = getattr(B, "append_tier", None)
+    if tier is not None:
+        out["chol_append_solve_tier"] = tier(T, N)
+    del V, Vp, zs, gb
+
     rng = np.random.default_rng(0)
     W_np = rng.standard_normal((D, K)).astype(np.float32)
     W_np /= np.linalg.norm(W_np, axis=0, keepdims=True)
@@ -132,6 +183,17 @@ def measure(root, label, ptxas):
         if gs == "mgs":
             out["omp_select_f32_mean_ms"] = sum(
                 ev[2 * k].elapsed_time(ev[2 * k + 1]) for k in range(T)) / T
+            # K6c on the final state, bit for bit its plain version
+            z = O.omp_backsub(state)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(z, O.omp_backsub_plain(state)))
+            ok &= exact
+            out["omp_backsub_ms"] = cuda_ms(lambda: O.omp_backsub(state))
+            out["omp_backsub_exact"] = exact
+            tier = getattr(O, "backsub_tier", None)
+            if tier is not None:
+                out["omp_backsub_tier"] = tier(state)
+            del z
         del state
     # K6b and K6d at step 32 from one state against their plain versions
     for gs, name in (("mgs", "omp_orth"), ("cgs2", "omp_orth_cgs2")):
@@ -159,6 +221,9 @@ def measure(root, label, ptxas):
 
     solves = {"fused": lambda: sparse_encode(x, W, algorithm="omp",
                                              n_nonzero_coefs=T),
+              "chol": lambda: sparse_encode(x, W, algorithm="omp",
+                                            n_nonzero_coefs=T,
+                                            solver="chol"),
               "chol_full": lambda: sparse_encode(x, W, algorithm="omp",
                                                  n_nonzero_coefs=T,
                                                  solver="chol-full"),

@@ -6,7 +6,7 @@ with one part cut out, at steps 0, 32 and 63 of one f32 solve.
 Run from the root of the repository on a machine with an NVIDIA card and
 the CUDA toolkit:
 
-    python3 scripts/omp_kernel_parts.py [--kernels k6b|k6d|all]
+    python3 scripts/omp_kernel_parts.py [--kernels k6b|k6d|k6c|all]
 
 It builds copies of csrc/omp.cu into build/omp_parts/: the source as it is
 ("whole") and copies with one part cut out. K6b (the streamed kernel): the
@@ -43,6 +43,25 @@ the active flags put back between launches. It prints one JSON line a step
 with the card's name and power limit, at benchmarks/omp_fused_bench.py's
 problem (16384x512->2048, T=64), and for K6d one line a sweep and step:
 the time without that sweep and what the whole kernel spends beyond it.
+K6c (``omp_backsub``) is timed on the solve's final state (after step
+63), whole and with a part cut out, 10 launches each. Its staged kernel
+(T <= 128): whole; with each warp copying its first sample's columns
+again and again ("k6c_staged_cols_from_cache": the copies hit L2);
+without the chains ("no_chain": the copies, d's loads and z's stores);
+with the columns copied for the first sample only and every later chain
+run on them ("copy_once": the chains alone), and that without the
+shuffle of rhs_{j-2} ("copy_once_no_shfl"), with a product for the divide
+("copy_once_no_div") or without the lanes' updates of their rows
+("copy_once_no_updates"); with neither copies nor chains ("io_only", the
+skeleton).
+The "k6c_warp_" copies send T = 64 to its kept warp kernel (the first
+kernel, taken past T = 128: a warp a sample, each column read from device
+memory on the chain): whole, with the chain's divides and updates on
+constant operands ("no_col_reads": the chain's arithmetic, shared memory
+and barriers alone), with every sample reading sample 0's columns
+("cols_from_cache": the chain's loads hit the caches) and with no chain
+("io_only": d read, z written).
+
 The cut copies compute wrong results; only their times mean anything.
 """
 
@@ -138,19 +157,91 @@ KEPT_CUTS = {
 CGS2_CUTS.update({"kept_whole": TO_KEPT,
                   **{name: TO_KEPT + cuts
                      for name, cuts in KEPT_CUTS.items()}})
+# K6c's copies, each timed through omp_backsub on the final state
+K6C_WARP_CHAIN = ("  for (int t = lane; t < T; t += 32) "
+                  "rhs[t] = d[(size_t)n * T + t];\n"
+                  "  __syncwarp();\n"
+                  "  for (int j = T - 1; j >= 0; --j) {\n"
+                  "    const float* col = R + ((size_t)n * T + j) * T;\n")
+K6C_NO_CHAIN = ("  for (int mj = RP - 1; mj >= 0; --mj)\n#pragma unroll",
+                "  for (int mj = RP - 1; mj >= RP; --mj)\n#pragma unroll")
+# the chain's parts: the shuffle of rhs_{j-2} (each lane takes its own
+# register), the divide (a product) and the lanes' updates of their rows
+K6C_NO_SHFL = ("        pre = __shfl_sync(0xffffffffu, rhs[(j - 2) / 32], "
+               "(j - 2) % 32);", "        pre = rhs[(j - 2) / 32];")
+K6C_NO_DIV = ("      const float zj = __fdiv_rn(cur, col[j]);",
+              "      const float zj = __fmul_rn(cur, col[j]);")
+K6C_NO_UPDATES = [
+    ("        rhs[m] = __fsub_rn(rhs[m], __fmul_rn(zj, col[32 * m + "
+     "lane]));", "        rhs[m] = rhs[m];"),
+    ("        rhs[mj] = __fsub_rn(rhs[mj], __fmul_rn(zj, col[32 * mj + "
+     "lane]));", "        rhs[mj] = rhs[mj];")]
+# each warp copies its first sample only and runs every later chain on it:
+# the chains without the copies
+K6C_COPY_ONCE = [
+    ("    stage(n + gridDim.x);", "    if (t < 0) stage(n + gridDim.x);"),
+    ("      wgp::mbar_wait(bar, t & 1);",
+     "      if (t < 1) wgp::mbar_wait(bar, t & 1);")]
+# each warp copies its first sample's columns again and again (2 MB in
+# all, so the copies hit L2)
+K6C_FROM_CACHE = ("    const float* Rn = R + (size_t)n * T * T;\n"
+                  "    if (VEC == 4) {",
+                  "    const float* Rn = R + (size_t)blockIdx.x * T * T;\n"
+                  "    if (VEC == 4) {")
+K6C_NO_COPIES = [
+    ("      for (int j = lane; j < T; j += 32)   // column j,",
+     "      for (int j = lane; j < 0; j += 32)   // column j,"),
+    ("      if (lane == 0)\n        wgp::mbar_expect_tx(",
+     "      if (lane == 0) wgp::mbar_arrive(bar);\n      if (false)\n"
+     "        wgp::mbar_expect_tx(")]
+# T = 64 to the warp kernel
+TO_WARP = [("  if (T <= 128) {\n    if (T % 4 == 0",
+            "  if (false) {\n    if (T % 4 == 0")]
+BACKSUB_CUTS = {
+    "k6c_staged_whole": [],
+    "k6c_staged_cols_from_cache": [K6C_FROM_CACHE],
+    "k6c_staged_no_chain": [K6C_NO_CHAIN],
+    "k6c_staged_copy_once": K6C_COPY_ONCE,
+    "k6c_staged_copy_once_no_shfl": K6C_COPY_ONCE + [K6C_NO_SHFL],
+    "k6c_staged_copy_once_no_div": K6C_COPY_ONCE + [K6C_NO_DIV],
+    "k6c_staged_copy_once_no_updates": K6C_COPY_ONCE + K6C_NO_UPDATES,
+    "k6c_staged_io_only": K6C_NO_COPIES + [K6C_NO_CHAIN],
+    "k6c_warp_whole": [],
+    "k6c_warp_no_col_reads": [
+        ("    const float zj = __fdiv_rn(rhs[j], col[j]);",
+         "    const float zj = __fdiv_rn(rhs[j], 1.5f + (float)j);"),
+        ("      rhs[i] = __fsub_rn(rhs[i], __fmul_rn(zj, col[i]));",
+         "      rhs[i] = __fsub_rn(rhs[i], __fmul_rn(zj, 0.5f));")],
+    "k6c_warp_cols_from_cache": [
+        ("    const float* col = R + ((size_t)n * T + j) * T;",
+         "    const float* col = R + (size_t)j * T;")],
+    "k6c_warp_io_only": [
+        (K6C_WARP_CHAIN, K6C_WARP_CHAIN.replace(
+            "  __syncwarp();\n",
+            "  __syncwarp();\n"
+            "  for (int t = lane; t < T; t += 32) z[(size_t)n * T + t] = "
+            "rhs[t];\n  return;\n"))],
+}
+BACKSUB_CUTS = {name: (TO_WARP if name.startswith("k6c_warp_") else [])
+                + cuts for name, cuts in BACKSUB_CUTS.items()}
 SWEEPS = ("cgs2_no_dots1", "cgs2_no_update1", "cgs2_no_dots2",
           "cgs2_no_update2")
 
 
 def build(kernels):
-    """{copy: ctypes library}, the copies of ``kernels`` ('k6b', 'k6d' or
-    'all') compiled together."""
+    """{copy: ctypes library}, the copies of ``kernels`` ('k6b', 'k6d',
+    'k6c' or 'all') compiled together."""
     src = open(os.path.join(_cuda.CSRC, "omp.cu")).read()
     out = os.path.join(ROOT, "build", "omp_parts")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    copies = {"whole": [], **(CUTS if kernels != "k6d" else {}),
-              **(CGS2_CUTS if kernels != "k6b" else {})}
+    copies = {}
+    if kernels in ("k6b", "all"):
+        copies.update({"whole": [], **CUTS})
+    if kernels in ("k6d", "all"):
+        copies.update({"whole": [], **CGS2_CUTS})
+    if kernels in ("k6c", "all"):
+        copies.update(BACKSUB_CUTS)
     for name, cuts in copies.items():
         text = src
         for old, new, *times in cuts:   # (old, new[, occurrences])
@@ -175,6 +266,8 @@ def build(kernels):
         for entry in ("omp_orth", "omp_orth_cgs2"):
             getattr(libs[name], entry).argtypes = O._ORTH_ARGS
             getattr(libs[name], entry).restype = ctypes.c_int
+        libs[name].omp_backsub.argtypes = O.OMP_BACKSUB.argtypes
+        libs[name].omp_backsub.restype = ctypes.c_int
     return libs
 
 
@@ -191,7 +284,7 @@ def launch_ms(fn, restore, reps=10):
         err = fn()
         ev[2 * i + 1].record()
         if err:
-            raise RuntimeError(f"omp_orth: CUDA error {err}")
+            raise RuntimeError(f"CUDA error {err}")
         restore()
     torch.cuda.synchronize()
     return sum(ev[2 * i].elapsed_time(ev[2 * i + 1])
@@ -200,7 +293,7 @@ def launch_ms(fn, restore, reps=10):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", choices=("k6b", "k6d", "all"),
+    ap.add_argument("--kernels", choices=("k6b", "k6d", "k6c", "all"),
                     default="all", help="the kernels whose copies to time")
     kernels = ap.parse_args().kernels
     if not torch.cuda.is_available():
@@ -223,7 +316,7 @@ def main():
     tol = O._tol(None)
     for k in range(T):
         O.omp_select(st, wsplit, invn)
-        if k in STEPS:
+        if k in STEPS and kernels != "k6c":
             r0, active0 = st.r.clone(), st.active.clone()
 
             def restore():
@@ -241,11 +334,12 @@ def main():
                         st.idx.data_ptr(), st.valid.data_ptr(),
                         st.active.data_ptr(), st.sel.data_ptr(),
                         st.rb.data_ptr(), tol, k, N, D, K, T, stream)
-                if kernels != "k6b" and (name == "whole"
-                                         or name in CGS2_CUTS):
+                if kernels in ("k6d", "all") and (name == "whole"
+                                                  or name in CGS2_CUTS):
                     cgs2[name] = round(launch_ms(
                         lambda: orth(lib.omp_orth_cgs2), restore), 4)
-                if kernels != "k6d" and name not in CGS2_CUTS:
+                if kernels in ("k6b", "all") and (name == "whole"
+                                                  or name in CUTS):
                     times[name] = round(launch_ms(
                         lambda: orth(lib.omp_orth), restore), 4)
             if "select_only" in times:
@@ -264,6 +358,18 @@ def main():
                         cgs2["whole"] - cgs2[name], 4)}), flush=True)
             restore()
         O.omp_orth(st, wt, k)
+    if kernels in ("k6c", "all"):
+        z = torch.empty_like(st.d)
+        times = {}
+        for name in BACKSUB_CUTS:
+            def back(lib=libs[name]):
+                return lib.omp_backsub(st.R.data_ptr(), st.d.data_ptr(),
+                                       st.valid.data_ptr(), z.data_ptr(), N,
+                                       T, stream)
+            times[name] = round(launch_ms(back, lambda: None), 4)
+        print(json.dumps({"card": card, "width": f"{N}x{D}->{K}",
+                          "T": T, "kernel": "omp_backsub",
+                          "k6c_ms": times}), flush=True)
     return 0
 
 

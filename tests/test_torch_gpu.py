@@ -302,37 +302,46 @@ def test_fused_omp_kernels_match_plain(kp):
     assert after["omp_backsub"] - before["omp_backsub"] == 1
 
 
-def test_chol_append_kernel_matches_plain():
+# K7's cases, (T, B) each: the panel kernel (T <= 64) at a B that is not
+# a multiple of 32 or of 4 and at T = 16; the sweep kernel past T = 64
+APPEND_CASES = {"panel": [(64, 1003), (16, 200)], "sweep": [(72, 37)]}
+
+
+@pytest.mark.parametrize("case", list(APPEND_CASES))
+def test_chol_append_kernel_matches_plain(case):
     """K7 against its plain version on the card, appending the rows of
-    random PD systems one at a time from the identity, in place, into a
-    new factor and into another buffer, with every third sample appending
-    identity rows (a frozen OMP sample): V and z rtol 2e-4 / atol 1e-5."""
+    random PD systems one at a time from the identity (k = 0 to T - 1),
+    in place, into a new factor and into another buffer, with every third
+    sample appending identity rows (a frozen OMP sample): V and z rtol
+    2e-4 / atol 1e-5. g and b hold NaN past k (the kernel reads g only to
+    k, and b past k only as z's value there)."""
     _need_card()
     rng = np.random.default_rng(3)
-    T, B = 16, 200
-    A = rng.standard_normal((B, T, T)).astype(np.float32)
-    M = A @ np.swapaxes(A, 1, 2) + T * np.eye(T, dtype=np.float32)[None]
-    M[::3] = np.eye(T, dtype=np.float32)
-    rhs = rng.standard_normal((T, B)).astype(np.float32)
-    V = torch.eye(T, device="cuda")[:, :, None].repeat(1, 1, B)
-    Vp = V.clone()
-    before = T_B.CHOL_APPEND_SOLVE.launches
-    for k in range(T):
-        g = np.zeros((T, B), np.float32)
-        g[:k + 1] = M[:, k, :k + 1].T
-        b = np.zeros((T, B), np.float32)
-        b[:k + 1] = rhs[:k + 1]
-        gc, bc = t(g).cuda(), t(b).cuda()
-        fresh, z_f = T_B.cholesky_append_solve_lanes(V, gc, bc, k)
-        other = torch.full_like(V, float("nan"))
-        _, z_o = T_B.cholesky_append_solve_lanes(V, gc, bc, k, out=other)
-        _, z = T_B.cholesky_append_solve_lanes(V, gc, bc, k, out=V)
-        Vp, z_p = T_B.cholesky_append_solve_lanes_plain(Vp, gc, bc, k)
-        for a, c in ((V, Vp), (fresh, Vp), (other, Vp), (z, z_p),
-                     (z_f, z_p), (z_o, z_p)):
-            np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
-        assert not bool(z[k + 1:].any())
-    assert T_B.CHOL_APPEND_SOLVE.launches - before == 3 * T
+    for T, B in APPEND_CASES[case]:
+        assert T_B.append_tier(T, B) == case
+        A = rng.standard_normal((B, T, T)).astype(np.float32)
+        M = A @ np.swapaxes(A, 1, 2) + T * np.eye(T, dtype=np.float32)[None]
+        M[::3] = np.eye(T, dtype=np.float32)
+        rhs = rng.standard_normal((T, B)).astype(np.float32)
+        V = torch.eye(T, device="cuda")[:, :, None].repeat(1, 1, B)
+        Vp = V.clone()
+        before = T_B.CHOL_APPEND_SOLVE.launches
+        for k in range(T):
+            g = np.full((T, B), np.nan, np.float32)
+            g[:k + 1] = M[:, k, :k + 1].T
+            b = np.zeros((T, B), np.float32)
+            b[:k + 1] = rhs[:k + 1]
+            gc, bc = t(g).cuda(), t(b).cuda()
+            fresh, z_f = T_B.cholesky_append_solve_lanes(V, gc, bc, k)
+            other = torch.full_like(V, float("nan"))
+            _, z_o = T_B.cholesky_append_solve_lanes(V, gc, bc, k, out=other)
+            _, z = T_B.cholesky_append_solve_lanes(V, gc, bc, k, out=V)
+            Vp, z_p = T_B.cholesky_append_solve_lanes_plain(Vp, gc, bc, k)
+            for a, c in ((V, Vp), (fresh, Vp), (other, Vp), (z, z_p),
+                         (z_f, z_p), (z_o, z_p)):
+                np.testing.assert_allclose(n(a), n(c), rtol=2e-4, atol=1e-5)
+            assert not bool(z[k + 1:].any())
+        assert T_B.CHOL_APPEND_SOLVE.launches - before == 3 * T
 
 
 def test_omp_on_card_matches_cpu():

@@ -1,9 +1,10 @@
 """lasso_tpu_torch's fused OMP kernels on a CUDA card: K6a ``omp_select``
 on the tensor cores, K6b ``omp_orth`` (the streamed kernel and, past D =
-1024, the warp-strided one) and K6d ``omp_orth_cgs2`` (the ``gs='cgs2'``
+1024, the warp-strided one), K6d ``omp_orth_cgs2`` (the ``gs='cgs2'``
 step: the resident block kernel and, past D = 1024 or for D not a multiple
-of 128, the warp-strided one) against their plain versions, and the
-launches of a cgs2 solve.
+of 128, the warp-strided one) and K6c ``omp_backsub`` (the staged kernel to
+T = 128, the warp kernel above; bit for bit) against their plain versions,
+and the launches of a cgs2 solve.
 
 Every test here is marked ``gpu`` and skips where there is no card. This
 file imports neither JAX nor the JAX package; on a machine that has only
@@ -253,3 +254,54 @@ def test_cgs2_solve_launches():
     assert delta["omp_select_f32"] == 64 and delta["omp_orth_cgs2"] == 64
     assert delta["omp_orth"] == 0 and delta["omp_backsub"] == 1
     assert bool(valid.all()) and bool(torch.isfinite(z_s).all())
+
+
+# K6c's cases, (N, T, R 16-byte aligned) each: the staged kernel with
+# 16-byte copies (T = 64, and T = 128, its widest) and 4-byte ones (T = 13,
+# and T = 64 with R one float past an aligned address); the warp kernel
+# past T = 128
+BACKSUB_CASES = {
+    "staged": [(1001, 64, True), (67, 128, True), (130, 13, True),
+               (33, 64, False)],
+    "warp": [(45, 129, True), (20, 200, True)],
+}
+
+
+@pytest.mark.parametrize("case", list(BACKSUB_CASES))
+def test_backsub_kernel_matches_plain(case):
+    """K6c bit for bit its plain version: R z = d on upper-triangular
+    systems kept as columns (R[n, j, :j + 1], NaN past the diagonal, which
+    neither reads), every fourth sample frozen from slot T // 3 on (its
+    columns e_j, d_j = 0, valid 0) and a fifth of the other slots not
+    valid."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    for N, T, aligned in BACKSUB_CASES[case]:
+        Rn = rng.standard_normal((N, T, T)).astype(np.float32) / T
+        jj = np.arange(T)
+        Rn[:, jj, jj] = 1.0 + np.abs(rng.standard_normal((N, T)))
+        Rn[:, jj[:, None] < jj[None, :]] = np.nan   # R[n, j, i], i > j
+        d = rng.standard_normal((N, T)).astype(np.float32)
+        valid = (rng.random((N, T)) > 0.2).astype(np.float32)
+        frozen = np.arange(N) % 4 == 0
+        for j in range(T // 3, T):
+            Rn[frozen, j, :j + 1] = 0.0
+            Rn[frozen, j, j] = 1.0
+        d[frozen, T // 3:] = 0.0
+        valid[frozen, T // 3:] = 0.0
+        buf = torch.empty(N * T * T + 1, device="cuda")
+        R = buf[int(not aligned):][:N * T * T].view(N, T, T)
+        R.copy_(t(Rn))
+        assert (R.data_ptr() % 16 == 0) == aligned
+        state = T_O.OmpState(
+            r=torch.zeros(N, 1, device="cuda"), rb=None, sel=None,
+            active=None, Q=None, R=R, d=t(d).cuda(), valid=t(valid).cuda(),
+            idx=None, pval=None, pidx=None)
+        assert T_O.backsub_tier(state).split(",")[0] == case
+        before = T_O.OMP_BACKSUB.launches
+        z = T_O.omp_backsub(state)
+        want = T_O.omp_backsub_plain(state)
+        assert T_O.OMP_BACKSUB.launches - before == 1
+        assert torch.equal(z, want), (N, T, aligned)
+        assert bool(torch.isfinite(z).all())
+        assert not bool(z[torch.from_numpy(frozen).cuda()][:, T // 3:].any())
