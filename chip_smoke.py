@@ -213,6 +213,34 @@ before the last line is printed.
    ``chunked_encode(algorithm='ista_conv2d')`` on 600 images in chunks of
    256 against direct calls, row for row.
 
+16. The rest of ``sparse_encode`` at the headline width (16384x512->2048,
+   alpha 0.1) through its entry: 'gpsr' (500 iterations), 'iter-ridge'
+   (Woodbury CG), 'interior-point' ('auto' = 'cg' here, 20 Newton
+   iterations of at most 128 CG iterations), 'split-bregman' in 'f32'
+   (100 outer iterations) and 'mixed' (200), 'own', ``constrained_inference``
+   in its penalized and (a cut bisection) constrained forms, and OMP
+   ``solver='cg'`` at T=64, held to 'chol-full' by phases 10-11's rule;
+   then at the training width (16384x256->1024) 'iter-ridge' with
+   ``woodbury_solver='cholesky'`` and 'interior-point' with
+   ``kkt_solver='cholesky'``, the main run of this slice: each ridge or
+   Newton step launches K8 once (counts set to 0 just before these two
+   solves and read after; no LU fallback), and K8 alone at that shape
+   (B=16384, D=256) held to its plain version by phase 12's rule and timed
+   beside it, the library and its bound: its own row of the kernels line.
+   Each solve runs twice: first under CUDA's sync debug mode (its
+   synchronizing CUDA calls; interior-point 'cg' (tracing the card only)
+   and the Cholesky routes (the host's operations too) also inside
+   torch.profiler, for their kernel time by name), then timed
+   between two synchronizes, with the launch counts and the inner loops'
+   iterations (conjugate gradients, backtracking searches, counted as they
+   run) read around it. For each solve: wall time, n_iter, inner
+   iterations, synchronizing calls, the kernel split against the wall
+   time where profiled (for interior-point 'cg' its ms a CG iteration and
+   the CG products' rate), the f64 objective's gap to a deep f32 FISTA solve of
+   the port (3200 iterations; 1600 within 1e-5 of it), which must stay
+   under the bound of the solver's JAX test, an objective at most its
+   z0's, finite codes, and the KKT violation.
+
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -231,6 +259,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -253,6 +282,7 @@ from lasso_tpu_torch.ops import fused_conv as FC  # noqa: E402
 from lasso_tpu_torch.ops import fused_group as G  # noqa: E402
 from lasso_tpu_torch.ops import fused_ista as F  # noqa: E402
 from lasso_tpu_torch.ops import fused_omp as O  # noqa: E402
+from lasso_tpu_torch.ops.common import INNER_ITERATIONS  # noqa: E402
 from lasso_tpu_torch.utils import chunked_encode  # noqa: E402
 
 N, D, K = headline_bench.N, headline_bench.D, headline_bench.K
@@ -302,6 +332,7 @@ CONV_TOL = {"f32": (3e-5, 1e-5), "bf16": (1e-3, 1e-4)}
 DEV = torch.device("cuda")
 DL = importlib.import_module("lasso_tpu_torch.linear.dict_learning")
 SCR = importlib.import_module("lasso_tpu_torch.linear.screening")
+SE = importlib.import_module("lasso_tpu_torch.linear.sparse_encode")
 
 
 def check(ok, what):
@@ -354,21 +385,31 @@ def kernel_seconds(fn):
                if e.device_type == DeviceType.CUDA) / 1e6
 
 
-def kernel_ms_by_name(fn):
-    """Milliseconds of CUDA kernel time of one call of ``fn`` by kernel
-    name, from torch.profiler. Names are cut to 40 characters, and the
-    kernels whose names share those 40 are added up under them."""
+def profiled(fn, host_ops=True):
+    """One call of ``fn`` under torch.profiler: its result and the
+    milliseconds of CUDA kernel time of the call by kernel name. Names are
+    cut to 40 characters, and the kernels whose names share those 40 are
+    added up under them. Without ``host_ops`` only the card's activity is
+    traced, which slows a call of many small operations far less."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        out = fn()
         torch.cuda.synchronize()
     ms = collections.Counter()
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             ms[e.key[:40]] += e.self_device_time_total / 1e3
-    return {k: round(v, 4) for k, v in ms.items()}
+    return out, {k: round(v, 4) for k, v in ms.items()}
+
+
+def kernel_ms_by_name(fn):
+    """Milliseconds of CUDA kernel time of one call of ``fn`` by kernel
+    name (see :func:`profiled`)."""
+    return profiled(fn)[1]
 
 
 def sass_mma_counts(library):
@@ -2040,7 +2081,8 @@ def phase_chol_solve():
 
     e_lib = float((library()[:, :, 0] - B.batch_cholesky_solve_lanes(b, A))
                   .abs().max())
-    row = {"name": "chol_solve", "route": "cuda", "source": CHOL_SOURCE,
+    row = {"name": "chol_solve", "shape": f"B={N}, D={OMP_T}",
+           "route": "cuda", "source": CHOL_SOURCE,
            "replaces": CHOL_SOLVE_REPLACES, "launches": None,
            "max_abs_err": errs[(N, OMP_T)],
            "ms": cuda_ms(lambda: B.batch_cholesky_solve_lanes(b, A)),
@@ -2510,6 +2552,343 @@ def phase_conv_slice():
     return counts
 
 
+
+# phase 16: the rest of sparse_encode. The gap bound of each run is that of
+# the solver's JAX test against a deep FISTA solve (objectives within
+# rtol * max(1, |f*|)): tests/test_gpsr.py:28, test_iterative_ridge.py:28,
+# test_heavy_solvers.py:36, :44, :54 (own: f < 1.1 f*) and :143 (the
+# penalized constrained form)
+SOLVER_GAP_BOUND = {"gpsr": 5e-3, "iter-ridge": 1e-2, "interior-point": 1e-2,
+                    "split-bregman": 1e-2, "own": 1e-1, "constrained": 1e-3}
+SOLVER_ANCHOR_ITERS = 3200       # the deep f32 FISTA solve of the port
+# the headline width's budgets: each solver's defaults, but for three, the
+# smallest that met the bound in scripts/solver_budgets.py (PERF.md):
+# gpsr's LCP test (tol 1e-2, a max over the batch) never passed in 1000
+# iterations (8.4 s), so it takes 500 (its gap 1.6e-2 at 200);
+# interior-point takes 20 Newton steps of at most 128 CG iterations in
+# place of 512 (16.8 s; its gap 1.9e-2 at 64); split-bregman's default 20
+# outer iterations left a gap of 2.7e-2, so 'f32' takes 100 and 'mixed',
+# whose bf16 phase leaves a floor that its f32 tail of maxiter // 8 must
+# remove, 200 (1.8e-2 at 100)
+SOLVER_RUNS = (
+    ("gpsr", "gpsr", {"maxiter": 500}),
+    ("iter-ridge", "iter-ridge", {}),
+    ("interior-point", "interior-point", {"maxiter": 20, "cg_maxiter": 128}),
+    ("split-bregman f32", "split-bregman", {"maxiter": 100}),
+    ("split-bregman mixed", "split-bregman",
+     {"maxiter": 200, "kernel_precision": "mixed"}),
+    ("own", "own", {}),
+)
+
+
+def objective64_dev(x, W, z, alpha):
+    """The lasso objective of codes z in float64 on the card."""
+    r = z.double() @ W.double().T - x.double()
+    return float(0.5 * torch.sum(r * r) + alpha * torch.sum(z.double().abs()))
+
+
+def kkt_violation64(x, W, z, alpha, support_tol=1e-6):
+    """The largest violation of the lasso's KKT conditions in float64
+    (tests/_oracles.py:20-32): |g_k + alpha sign(z_k)| on the support,
+    max(|g_k| - alpha, 0) off it, g = W^T (W z - x)."""
+    z64 = z.double()
+    g = (z64 @ W.double().T - x.double()) @ W.double()
+    on = z64.abs() > support_tol
+    v_on = torch.where(on, (g + alpha * torch.sign(z64)).abs(), 0.0)
+    v_off = torch.where(on, 0.0, torch.clamp_min(g.abs() - alpha, 0.0))
+    return float(torch.maximum(v_on.max(), v_off.max()))
+
+
+def count_syncs(fn):
+    """Run ``fn`` once under CUDA's sync debug mode and count the
+    synchronizing CUDA calls it made. Returns (fn's result, the count)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def fista_anchor(x, W, alpha):
+    """f64 objective of a deep f32 FISTA solve of the port (lr = 1/L,
+    SOLVER_ANCHOR_ITERS iterations, tol 0, fused 'f32' path)."""
+    lr = float(1.0 / lipschitz_constant(W))
+    z = sparse_encode(x, W, alpha, algorithm="ista", lr=lr, tol=0.0,
+                      maxiter=SOLVER_ANCHOR_ITERS, kernel_precision="f32")
+    half = sparse_encode(x, W, alpha, algorithm="ista", lr=lr, tol=0.0,
+                         maxiter=SOLVER_ANCHOR_ITERS // 2,
+                         kernel_precision="f32")
+    f, f_half = objective64_dev(x, W, z, alpha), objective64_dev(
+        x, W, half, alpha)
+    return f, (f_half - f) / abs(f)
+
+
+def timed_solve(call, profile=False, host_ops=False):
+    """Run a solve twice. The first run, under CUDA's sync debug mode (and
+    with ``profile`` inside torch.profiler, tracing the host's operations
+    too only with ``host_ops``), counts its synchronizing calls (and its
+    kernel time by name) and warms the solver's shapes; the second is
+    timed between two synchronizes, with the launch counts and the inner
+    loops' iterations (``INNER_ITERATIONS``: CG, backtracking) read around
+    it."""
+    torch.cuda.synchronize()
+    INNER_ITERATIONS.clear()
+    if profile:
+        ((_, n_first), syncs), by_name = profiled(
+            lambda: count_syncs(call), host_ops=host_ops)
+    else:
+        (_, n_first), syncs = count_syncs(call)
+        by_name = None
+    inner_first = dict(INNER_ITERATIONS)
+    INNER_ITERATIONS.clear()
+    torch.cuda.synchronize()
+    before = _cuda.launch_counts()
+    t0 = time.perf_counter()
+    z, n_iter = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = _cuda.launch_counts()
+    return types.SimpleNamespace(
+        z=z, n_iter=n_iter, seconds=seconds, syncs=syncs, kernels=by_name,
+        launches={k: v - before.get(k, 0) for k, v in after.items()
+                  if v != before.get(k, 0)},
+        inner=dict(INNER_ITERATIONS),
+        same_as_first=(inner_first == dict(INNER_ITERATIONS)
+                       and n_first == n_iter))
+
+
+def solver_report(label, x, W, f_star, z0, bound, solve):
+    """Print one solve of phase 16 and check it: finite codes of z0's
+    shape, an objective at most z0's, the gap to the FISTA anchor f_star
+    at most ``bound`` (relative to max(1, |f_star|)). A profiled solve
+    also prints its kernel time by name, against the timed run's wall
+    time."""
+    z = solve.z
+    f = objective64_dev(x, W, z, ALPHA)
+    f0 = objective64_dev(x, W, z0, ALPHA)
+    gap = (f - f_star) / max(1.0, abs(f_star))
+    kkt = kkt_violation64(x, W, z, ALPHA)
+    print(f"[16] {label}: {solve.seconds:.4f} s, n_iter {solve.n_iter}, "
+          f"inner iterations {json.dumps(solve.inner)} (the same in the "
+          f"first run: {solve.same_as_first}), {solve.syncs} synchronizing "
+          f"calls a solve, objective f64 {f:.10g} (z0's {f0:.10g}), gap "
+          f"to the FISTA anchor {gap:.3e} (bound {bound:g}), KKT violation "
+          f"{kkt:.3e} (alpha {ALPHA}), sparsity "
+          f"{float((z == 0).float().mean()):.4f}, launches "
+          f"{json.dumps(solve.launches)}")
+    if solve.kernels is not None:
+        print(f"[16] {label}: {kernel_split(solve.kernels, solve.seconds)}")
+    check(bool(torch.isfinite(z).all()) and tuple(z.shape) == tuple(z0.shape),
+          f"{label}: codes finite and [N, K]")
+    check(f <= f0, f"{label}: objective {f} above its z0's {f0}")
+    check(gap <= bound, f"{label}: gap {gap:.3e} above {bound:g}")
+
+
+def kernel_split(by_name, seconds):
+    """A profiled run's kernel time, its share of a timed run's wall
+    time, its cuBLAS products and elementwise kernels, and the largest
+    kernels by name."""
+    total = sum(by_name.values())
+    elementwise = sum(v for k, v in by_name.items() if "elementwise" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return (f"kernels {total:.2f} ms ({100 * total / 1e3 / seconds:.1f}% of "
+            f"the wall time): cuBLAS products {gemm_ms(by_name):.2f} ms, "
+            f"elementwise {elementwise:.2f} ms; largest "
+            f"{json.dumps(dict(top))}")
+
+
+def gemm_ms(by_name):
+    """The kernel time of cuBLAS's matrix products in a profiled split
+    (its own GEMM kernels and the CUTLASS SIMT ones it picks)."""
+    return sum(v for k, v in by_name.items()
+               if "gemm" in k.lower() or "cutlass" in k)
+
+
+def phase_solvers(x_np, W_np):
+    """The rest of sparse_encode (gpsr, iter-ridge, interior-point,
+    split-bregman, own, constrained_inference, OMP 'cg') at the headline
+    width, and iter-ridge and interior-point on their Cholesky routes at
+    the training width, where each ridge or Newton step launches K8 once
+    (the main run of this slice: counts set to 0 just before those two
+    solves and read just after). Each solve runs twice
+    (:func:`timed_solve`). Returns the launch counts of the main run and
+    K8's row at the shape these routes give it."""
+    one = torch.ones(4, device=DEV)
+    torch.cuda.synchronize()
+    reads = {name: count_syncs(fn)[1] for name, fn in (
+        ("bool", lambda: bool(one.any())), ("float", lambda: float(
+            one.sum())), ("nothing", lambda: one * 2))}
+    print(f"[16] synchronizing calls counted for one host read: "
+          f"{json.dumps(reads)}")
+    check(reads["bool"] > 0 and reads["float"] > 0 and reads["nothing"] == 0,
+          "the sync debug mode counts host reads")
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    t0 = time.perf_counter()
+    f_star, drift = fista_anchor(x, W, ALPHA)
+    print(f"[16] FISTA anchor at {N}x{D}->{K}: objective f64 {f_star:.10g}, "
+          f"{SOLVER_ANCHOR_ITERS // 2} iterations {drift:.3e} relative above "
+          f"it ({time.perf_counter() - t0:.2f} s)")
+    check(abs(drift) <= 1e-5, "the FISTA anchor has converged")
+
+    for label, name, kw in SOLVER_RUNS:
+        z0 = linear.initialize_code(x, W, ALPHA, SE._init_defaults[name])
+        call = (lambda name=name, kw=kw: sparse_encode(
+            x, W, ALPHA, algorithm=name, return_iters=True, **kw))
+        solve = timed_solve(call, profile=name == "interior-point")
+        solver_report(label, x, W, f_star, z0, SOLVER_GAP_BOUND[name], solve)
+        if name == "interior-point":
+            # each inner CG iteration makes two products [N, D] x [D, 2K]
+            # and back; the Newton steps' own products are in the GEMM time
+            # but not in these operations, so the rate is a floor
+            cg_iters = solve.inner.get("normal_cg", 0)
+            gemm = gemm_ms(solve.kernels)
+            flops = cg_iters * 2 * 2 * N * D * 2 * K
+            print(f"[16] interior-point 'cg': {cg_iters} inner CG "
+                  f"iterations, {1e3 * solve.seconds / max(cg_iters, 1):.4f}"
+                  f" ms of wall time and {gemm / max(cg_iters, 1):.4f} ms of "
+                  f"cuBLAS products each (profiled run: {gemm:.2f} ms of "
+                  f"products); the CG products at least "
+                  f"{flops / (gemm / 1e3) / 1e12:.2f} TFLOP/s")
+    solve = timed_solve(lambda: (linear.solvers.constrained_inference(
+        x, W, constr=False, alpha=ALPHA), 200))
+    solver_report("constrained_inference, penalized", x, W, f_star,
+                  torch.zeros((N, K), device=DEV),
+                  SOLVER_GAP_BOUND["constrained"], solve)
+    # the constrained form, rss_lim 0.3 of the mean row's 0.5 ||x||^2
+    # (tests/test_heavy_solvers.py:123-132 takes 0.3 of row 0's), with a
+    # cut bisection: 10 steps of 50 FISTA iterations
+    rss_lim = float(0.5 * torch.mean(torch.sum(x * x, 1))) * 0.3
+    solve = timed_solve(
+        lambda: (linear.solvers.constrained_inference(
+            x, W, constr=True, rss_lim=rss_lim, fista_iters=50,
+            bisect_iters=10), 10))
+    zc = solve.z
+    rss = 0.5 * torch.sum((zc @ W.T - x) ** 2, dim=1)
+    print(f"[16] constrained_inference, rss_lim {rss_lim:.4f}, 10 bisection "
+          f"steps of 50 FISTA iterations: {solve.seconds:.4f} s, "
+          f"{solve.syncs} synchronizing calls, rss max "
+          f"{float(rss.max()):.4f} (at most 1.05 rss_lim), rows binding at "
+          f"0.8 rss_lim {int((rss >= 0.8 * rss_lim).sum())} of {N}")
+    check(bool(torch.isfinite(zc).all())
+          and bool(torch.all(rss <= rss_lim * 1.05))
+          and bool(torch.any(rss >= 0.8 * rss_lim)),
+          "constrained_inference meets rss_lim (tests/test_heavy_solvers.py"
+          ":131-132)")
+    del zc, solve
+
+    print(f"[16] {time.perf_counter() - t0:.1f} s into the phase: the "
+          f"headline solves done")
+
+    # OMP 'cg' at T=64 against 'chol-full' by phases 10-11's rule
+    xo, Wo = (torch.from_numpy(a).to(DEV) for a in omp_problem())
+    kw = dict(algorithm="omp", n_nonzero_coefs=OMP_T)
+    z_full = sparse_encode(xo, Wo, solver="chol-full", **kw)
+    solve = timed_solve(lambda: sparse_encode(
+        xo, Wo, solver="cg", return_iters=True, **kw))
+    z_cg = solve.z
+    nnz = (z_cg != 0).sum(dim=1)
+    print(f"[16] omp cg, T={OMP_T}: {1 / solve.seconds:.3f} solves/s "
+          f"({solve.seconds:.4f} s), n_iter {solve.n_iter}, inner "
+          f"iterations {json.dumps(solve.inner)}, {solve.syncs} "
+          f"synchronizing calls a solve, mean rss "
+          f"{float(omp_rss64(xo, Wo, z_cg).mean()):.6f} (chol-full "
+          f"{float(omp_rss64(xo, Wo, z_full).mean()):.6f}), nnz per row "
+          f"{int(nnz.min())}-{int(nnz.max())}, launches "
+          f"{json.dumps(solve.launches)}")
+    check(bool(torch.isfinite(z_cg).all()) and int(nnz.max()) <= OMP_T
+          and solve.n_iter == OMP_T and not solve.launches, "omp cg: codes")
+    print("[16] chol-full against cg:")
+    check(omp_agree_at_scale(xo, Wo, z_full, z_cg, 16),
+          "omp cg and chol-full agree at the headline")
+    del xo, Wo, z_full, z_cg, solve
+
+    print(f"[16] {time.perf_counter() - t0:.1f} s into the phase: OMP 'cg' "
+          f"done")
+
+    # the training width on the Cholesky routes: K8 once a step
+    xs, Ws = headline_bench.make_problem(TRAIN_N, TRAIN_D, TRAIN_K, seed=16)
+    xt = torch.from_numpy(xs[0]).to(DEV)
+    Wt = torch.from_numpy(Ws).to(DEV)
+    ft_star, drift = fista_anchor(xt, Wt, ALPHA)
+    print(f"[16] FISTA anchor at {TRAIN_N}x{TRAIN_D}->{TRAIN_K}: objective "
+          f"f64 {ft_star:.10g}, half its iterations {drift:.3e} above it")
+    check(abs(drift) <= 1e-5, "the training-width anchor has converged")
+    runs = (("iter-ridge woodbury cholesky", "iter-ridge",
+             {"woodbury_solver": "cholesky"}),
+            ("interior-point cholesky", "interior-point",
+             {"kkt_solver": "cholesky", "maxiter": 20}))
+    # traced with the host's operations: a trace of the card's activity
+    # alone held about half of interior-point's kernels in one full run
+    # (1274 of some 2660 ms, K8 110.7 of 231 ms), all of them in another
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    solves = [timed_solve(lambda name=name, kw=kw: sparse_encode(
+        xt, Wt, ALPHA, algorithm=name, return_iters=True, **kw), profile=True,
+        host_ops=True) for _, name, kw in runs]
+    counts = _cuda.launch_counts()
+    print("[16] training-width launch counts (two runs a solve):",
+          json.dumps({k: v for k, v in counts.items() if v}))
+    z0 = linear.initialize_code(xt, Wt, ALPHA, "ridge")
+    for (label, name, _), solve in zip(runs, solves):
+        solver_report(f"{label}, {TRAIN_N}x{TRAIN_D}->{TRAIN_K}", xt, Wt,
+                      ft_star, z0, SOLVER_GAP_BOUND[name], solve)
+        k8 = sum(v for k, v in solve.kernels.items() if "chol_solve" in k)
+        print(f"[16] {label}: K8 {k8:.3f} ms of the profiled run's kernels")
+        got = solve.launches
+        check(got.get("chol_solve", 0) == solve.n_iter
+              and got.get("batch_cholesky_solve_lu", 0) == 0,
+              f"{label}: {got.get('chol_solve', 0)} chol_solve launches "
+              f"(want {solve.n_iter}), {got.get('batch_cholesky_solve_lu', 0)}"
+              f" LU fallbacks (want 0)")
+    del xt, Wt, solves
+
+    print(f"[16] {time.perf_counter() - t0:.1f} s into the phase: the "
+          f"Cholesky routes done")
+
+    # K8 at the shape these routes give it, held to its plain version (the
+    # rule of phase 12) and timed beside it, the library and its bound
+    b, A = spd_systems(TRAIN_N, TRAIN_D, seed=16)
+    got = B.batch_cholesky_solve_lanes(b, A)
+    torch.cuda.synchronize()
+    want = B.batch_cholesky_solve_lanes_plain(b, A)
+    worst = rel_excess(got, want, 1e-4)
+    err = float((got - want).abs().max())
+    print(f"[16] chol_solve B={TRAIN_N} D={TRAIN_D}: max|err| {err:.3e}, "
+          f"max(|err| - 1e-4 |plain|) {worst:.3e} (atol 1e-5)")
+    check(worst <= 1e-5 and bool(torch.isfinite(got).all()),
+          f"chol_solve B={TRAIN_N} D={TRAIN_D}")
+    del got, want
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.cholesky_solve(b[:, :, None], L)
+
+    t_bytes, t_ops = chol_solve_bound_ms(TRAIN_N, TRAIN_D)
+    row = {"name": "chol_solve", "shape": f"B={TRAIN_N}, D={TRAIN_D}",
+           "route": "cuda", "source": CHOL_SOURCE,
+           "replaces": CHOL_SOLVE_REPLACES, "launches": None,
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: B.batch_cholesky_solve_lanes(b, A),
+                         reps=10),
+           "plain_ms": cuda_ms(
+               lambda: B.batch_cholesky_solve_lanes_plain(b, A), reps=1,
+               warm=0),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": 1e3 * sum(kernel_seconds(library)
+                                   for _ in range(3)) / 3}
+    print(f"[16] {json.dumps(row)} (ms: mean of 10 launches; plain_ms: one "
+          f"call after the one held to the kernel; library_ms: torch.linalg.cholesky_ex + "
+          f"torch.cholesky_solve, the card time of its operations by "
+          f"torch.profiler, mean of 3 calls, timed only)")
+    return counts, row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2577,11 +2956,18 @@ def main():
         rows.append({**row, "launches": counts.get(name, 0)})
     chol_row = phase_chol_solve()
     counts = phase_chol_full(*omp_problem())
-    rows.append({**chol_row, "launches": counts["chol_solve"]})
+    chol_row = {**chol_row, "launches": counts["chol_solve"]}
+    rows.append(chol_row)
     conv_rows = phase_conv_kernels()
     counts = phase_conv_slice()
     for name, row in conv_rows.items():
         rows.append({**row, "launches": counts.get(name, 0)})
+    t16 = time.perf_counter()
+    counts, chol_train_row = phase_solvers(*headline_problem())
+    # K8's launches on this slice's path: iter-ridge and interior-point on
+    # their Cholesky routes at the training width
+    rows.append({**chol_train_row, "launches": counts["chol_solve"]})
+    print(f"[16] phase time {time.perf_counter() - t16:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)

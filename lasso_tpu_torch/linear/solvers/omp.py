@@ -7,7 +7,7 @@ support kept as an [N, T] index matrix with a validity mask, and a
 per-sample ``tol`` stop on the squared residual (sklearn's
 ``orthogonal_mp(tol=...)``) that freezes a finished sample exactly.
 
-Three routes of the JAX package are ported:
+The four routes of the JAX package are ported:
 
 * ``solver='fused'``: the whole solve as the kernels of
   :mod:`lasso_tpu_torch.ops.fused_omp` (QR-OMP by modified Gram-Schmidt);
@@ -18,12 +18,14 @@ Three routes of the JAX package are ported:
   sample's [T, T] support system and solves it afresh every step with
   :func:`lasso_tpu_torch.linalg.batch_cholesky_solve` (the Cholesky solve
   kernel where it applies, an LU solve of the whole batch when a support
-  system is not PD).
+  system is not PD);
+* ``solver='cg'``: the same refactorizing loop, with each step's support
+  system solved by :func:`lasso_tpu_torch.linalg.conjgrad_per_row`,
+  warm-started at the previous step's coefficients.
 
 Their per-step products, gathers and argmax are PyTorch ops, as the JAX
 package leaves them to XLA; the ``while_loop`` is a Python loop that reads
-``any(active)`` to the host once a step. ``'cg'`` (warm-started CG, ROADMAP
-A item 9) is not ported yet and raises ``NotImplementedError``.
+``any(active)`` to the host once a step ('cg' also once a CG iteration).
 """
 
 from __future__ import annotations
@@ -35,14 +37,15 @@ import torch.nn.functional as F
 
 from lasso_tpu_torch.config import get_precision
 from lasso_tpu_torch.linalg.basic import batch_cholesky_solve
+from lasso_tpu_torch.linalg.conjgrad import conjgrad_per_row
 from lasso_tpu_torch.ops.batched_cholesky import (cholesky_append_solve_lanes,
                                                   supports_lanes_append)
-from lasso_tpu_torch.ops.common import matmul, resolve_pallas
+from lasso_tpu_torch.ops.common import matmul, resolve_pallas, row_dot
 from lasso_tpu_torch.ops.fused_omp import fused_omp_solve, supports_fused_omp
 
-_NOT_PORTED = {"cg": "conjgrad_per_row, ROADMAP A item 9"}
-# N T^2 above which the JAX package's 'auto' takes 'cg' over 'chol-full'
-# where the append kernel is unavailable
+# N T^2 above which 'auto' takes 'cg' over 'chol-full' where the append
+# kernel is unavailable: the refactorizing Cholesky stays ahead of the
+# warm-started CG up to there in the JAX package's measurements
 _CG_CROSSOVER = 1 << 27
 
 
@@ -64,12 +67,12 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
     ``n_nonzero_coefs``: the support budget T (default ``max(1, K // 10)``,
     at most ``min(D, K)``). ``tol``: optional per-sample stop on the
     squared residual norm. ``gram_jitter``: diagonal jitter of the support
-    Gram solve ('chol' and 'chol-full'). ``kernel_precision`` ('f32' or
+    Gram solve ('chol', 'chol-full' and 'cg'). ``kernel_precision`` ('f32' or
     'bf16') sets the selection product of 'fused'. ``ws_fast``: the
     gather-free ``W_S``-carry loop body of 'chol' ('auto' while the
     [N, T, D] carry stays under 6 GB; True/False force it; both bodies
-    compute the same recursion; 'chol-full' always gathers).
-    ``cg_tol`` belongs to the unported 'cg'.
+    compute the same recursion; 'chol-full' and 'cg' always gather).
+    ``cg_tol``: the per-row residual tolerance of 'cg''s solves.
 
     ``solver``:
 
@@ -86,13 +89,12 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
       Unavailable, it warns and takes 'chol-full', the exact route.
     * 'chol-full' refactorizes the support system each step with
       :func:`batch_cholesky_solve` (``use_pallas`` passed on).
+    * 'cg' solves each step's [N, T, T] support system by
+      :func:`conjgrad_per_row` (``maxiter=T+8``, ``tol=cg_tol``),
+      warm-started at the previous step's coefficients.
     * 'auto' takes 'fused' where it is available, else 'chol' where the
       append kernel launches (a CUDA tensor, or ``use_pallas=True``),
-      else 'chol-full' up to N T^2 = 2^27. Above that the JAX package
-      takes 'cg', which is not ported: a float32 CPU tensor keeps the
-      append's plain version, and anything else raises
-      ``NotImplementedError``.
-    * 'cg' raises ``NotImplementedError``.
+      else 'chol-full' up to N T^2 = 2^27 and 'cg' above.
 
     Atom selection divides the correlations by the column norms (a no-op
     for unit-norm dictionaries). Returns ``z`` [N, K], plus the executed
@@ -108,9 +110,6 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
         raise ValueError(
             f"n_nonzero_coefs must be in [1, min(D, K)] = "
             f"[1, {min(D, K)}], got {T}")
-    if solver in _NOT_PORTED:
-        raise NotImplementedError(f"solver={solver!r} is not ported yet "
-                                  f"({_NOT_PORTED[solver]})")
     Tp = -(-T // 8) * 8          # the append kernel's panel-aligned T
     # Pad onto the fused path's 128-aligned (D, K) grid when only alignment
     # blocks it: zero feature columns change no correlation or residual,
@@ -154,13 +153,7 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
         return z
     inc = bool(use_pallas) and supports_lanes_append(Tp, N, x.dtype)
     if solver == "auto" and not resolve_pallas(use_pallas, inc, x.device):
-        if N * T * T <= _CG_CROSSOVER:
-            solver = "chol-full"
-        elif not inc:
-            raise NotImplementedError(
-                f"solver='auto' takes 'cg' here in the JAX package (no "
-                f"append kernel, N T^2 = {N * T * T} > 2^27), which is not "
-                f"ported yet ({_NOT_PORTED['cg']})")
+        solver = "cg" if N * T * T > _CG_CROSSOVER else "chol-full"
     elif solver == "chol" and not inc:
         # an explicit exact solver never remaps to the inexact CG
         warnings.warn(
@@ -171,20 +164,22 @@ def orthogonal_matching_pursuit(x, weight, n_nonzero_coefs=None, tol=None,
         solver = "chol-full"
     if solver == "auto":
         solver = "chol"
-    if solver not in ("chol", "chol-full"):
+    if solver not in ("chol", "chol-full", "cg"):
         raise ValueError(f"solver must be 'fused', 'chol', 'chol-full', "
                          f"'cg' or 'auto', got {solver!r}")
     return _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast,
-                     verbose, return_iters, full=solver == "chol-full",
-                     use_pallas=use_pallas)
+                     verbose, return_iters, solver, use_pallas=use_pallas,
+                     cg_tol=cg_tol)
 
 
 def _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast, verbose,
-              return_iters, full=False, use_pallas="auto"):
-    """The Cholesky routes (the JAX package's while_loop): the incremental
-    'chol', or with ``full`` the refactorizing 'chol-full', which always
-    takes the gather body and solves its [N, T, T] system with
-    :func:`batch_cholesky_solve` (``use_pallas``)."""
+              return_iters, solver="chol", use_pallas="auto", cg_tol=1e-10):
+    """The unfused routes (the JAX package's while_loop): the incremental
+    'chol', or the refactorizing 'chol-full' and 'cg', which always take
+    the gather body and solve their [N, T, T] system with
+    :func:`batch_cholesky_solve` (``use_pallas``) or with
+    :func:`conjgrad_per_row` warm-started at the last coefficients."""
+    full = solver != "chol"
     N, D = x.shape
     K = weight.shape[1]
     dev, dtype = x.device, x.dtype
@@ -278,8 +273,14 @@ def _omp_chol(x, weight, T, Tp, tol, prec, gram_jitter, ws_fast, verbose,
                 sys[:, k, :] = row_k
                 sys[:, :, k] = row_k
                 G_sys = sys + gram_jitter * eyeT if gram_jitter else sys
-                z_new = batch_cholesky_solve(b_sel, G_sys,
-                                             use_pallas=use_pallas)
+                if solver == "chol-full":
+                    z_new = batch_cholesky_solve(b_sel, G_sys,
+                                                 use_pallas=use_pallas)
+                else:
+                    z_new = conjgrad_per_row(
+                        b_sel, lambda u: matmul(G_sys, u[:, :, None],
+                                                prec)[:, :, 0],
+                        row_dot, maxiter=T + 8, tol=cg_tol, x0=z_s)
             else:
                 V, z_new = append_solve(V, g_k, b_sel, active, k)
         z_s = torch.where(valid, z_new, 0.0)

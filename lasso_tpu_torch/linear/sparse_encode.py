@@ -1,13 +1,13 @@
 """Public encode API: code initialization and dispatch over solvers.
 
 Counterpart of the JAX package's ``linear/sparse_encode.py``, with the same
-algorithm names, init modes and per-algorithm init defaults. ``'ista'``,
-``'cd'``, ``'cd-mod'``, ``'group-ista'`` and ``'omp'`` are ported; every
-other known name raises ``NotImplementedError`` naming its ROADMAP item,
-and an unknown name raises ``ValueError``.
+algorithm names, init modes and per-algorithm init defaults; an unknown
+name raises ``ValueError``.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -27,15 +27,6 @@ _init_defaults = {
     "own": "zero",
     "omp": "zero",   # unused: OMP takes no z0
     "group-ista": "zero",
-}
-
-# where each algorithm that is not ported yet stands in ROADMAP.md queue A
-_NOT_PORTED = {
-    "gpsr": "A item 9",
-    "iter-ridge": "A item 9",
-    "interior-point": "A item 9",
-    "split-bregman": "A item 9",
-    "own": "A item 9",
 }
 
 
@@ -77,10 +68,14 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
                   generator=None, return_iters=False, **kwargs):
     """Batched sparse coding: ``min_z 0.5||z W^T - x||^2 + alpha ||z||_1``.
 
-    ``alpha`` may be a scalar, an ``[N]`` per-sample vector or a ``[1, K]``
-    per-feature row; ista and cd take all three natively, group-ista takes
-    the first two and refuses the row, and the other algorithms get them
-    through the homogeneity wrappers below.
+    Algorithms: 'ista', 'cd', 'cd-mod', 'gpsr', 'iter-ridge',
+    'interior-point', 'split-bregman', 'own' (orthant-wise Newton),
+    'group-ista' and 'omp'; the remaining keyword arguments go to the
+    solver. ``alpha`` may be a scalar, an ``[N]`` per-sample vector or a
+    ``[1, K]`` per-feature row; ista and cd take all three natively,
+    group-ista takes the first two and refuses the row, and the other
+    algorithms get them through the homogeneity wrappers below (their
+    tolerances then act in penalty-normalized units).
     ``generator`` seeds the ``'unif'`` init. ``return_iters=True``
     returns ``(z, n_iter)``. ``'omp'`` is the greedy L0 solver: it ignores
     ``alpha`` and ``z0`` and takes ``n_nonzero_coefs`` / ``tol``.
@@ -133,11 +128,6 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
         raise ValueError(
             f"unknown algorithm {algorithm!r}; expected one of "
             f"{sorted(_init_defaults)}")
-    if algorithm in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} is not ported yet "
-            f"(ROADMAP {_NOT_PORTED[algorithm]})")
-
     if z0 is not None:
         if tuple(z0.shape) != (n_samples, n_components):
             raise ValueError(f"z0 has shape {tuple(z0.shape)}, expected "
@@ -145,6 +135,10 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
     else:
         if init is None:
             init = _init_defaults[algorithm]
+        elif init == "zero" and algorithm == "iter-ridge":
+            warnings.warn("zero init is a poor choice for iter-ridge: "
+                          "coordinates at exactly zero freeze "
+                          "permanently (use the ridge default)")
         z0 = initialize_code(x, weight, alpha, mode=init,
                              generator=generator)
 
@@ -161,5 +155,27 @@ def sparse_encode(x, weight, alpha=1.0, z0=None, algorithm="ista", init=None,
         # block size or [K] id array)
         return solvers.group_ista(x, z0, weight, alpha,
                                   return_iters=return_iters, **kwargs)
+    if algorithm == "gpsr":
+        prec = get_precision(kwargs.pop("precision", None))
+        wt = weight.T
+        return solvers.gpsr_basic(
+            x, lambda v: matmul(v, wt, prec), tau=alpha,
+            AT=lambda v: matmul(v, weight, prec), x0=z0,
+            return_iters=return_iters, **kwargs)
+    if algorithm == "iter-ridge":
+        return solvers.iterative_ridge(z0, x, weight, alpha,
+                                       return_iters=return_iters, **kwargs)
+    if algorithm == "interior-point":
+        # (z, success[, n_iter]) inside, z or (z, n_iter) outward
+        out = solvers.interior_point(x, weight, z0, alpha,
+                                     return_iters=return_iters, **kwargs)
+        return (out[0], out[2]) if return_iters else out[0]
+    if algorithm == "split-bregman":
+        z, n_iter = solvers.split_bregman(weight, x, z0, alpha, **kwargs)
+        return (z, n_iter) if return_iters else z
+    if algorithm == "own":
+        return solvers.orthant_wise_newton(weight, x, z0, alpha,
+                                           return_iters=return_iters,
+                                           **kwargs)
     return solvers.ista(x, z0, weight, alpha, return_iters=return_iters,
                         **kwargs)

@@ -5,11 +5,19 @@ Counterpart of the JAX package's ``ops/common.py``.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
 from lasso_tpu_torch.config import get_precision, require_fp32_matmul
 from lasso_tpu_torch.ops.precision import round_bf16, split_bf16
+
+
+# Iterations of the solvers' inner loops (conjugate gradients, backtracking
+# line searches) by loop name, added up as they run: what a solve's n_iter
+# does not show. Each such iteration reads its stopping test to the host.
+INNER_ITERATIONS = collections.Counter()
 
 
 def resolve_pallas(use_pallas, supported, device):
@@ -93,6 +101,18 @@ def matmul(a, b, precision=None):
     return a @ b
 
 
+def safe_div(num, den):
+    """``num / den`` with 0 where ``den`` is 0, so that a converged or
+    masked sample's 0/0 cannot poison the batch."""
+    ok = den != 0
+    return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+def row_dot(u, v):
+    """Per-row inner products of [B, n] tensors, as a [B, 1] column."""
+    return torch.sum(u * v, dim=1, keepdim=True)
+
+
 def per_sample_alpha_column(alpha, batch_size, ndim=2):
     """Resolve a per-sample penalty vector to a broadcastable column.
 
@@ -137,3 +157,25 @@ def per_feature_alpha_row(alpha, n_components, n_samples=None):
     if not bool(torch.all(arr > 0)):
         raise ValueError("per-feature alpha entries must be > 0")
     return arr.reshape(1, n_components)
+
+
+_GRAM_CHUNK_BYTES = 1 << 30
+
+
+def weighted_gram(W, d, precision=None):
+    """``W diag(d_b) W^T`` for each row ``d_b`` of ``d``: W [D, M], d
+    [B, M] -> [B, D, D] (the JAX package's ``einsum('dk,bk,ek->bde')``).
+
+    The batch goes through in chunks whose [b, D, M] scaled copy of W
+    stays under 1 GiB, so that the temporary does not grow with the
+    batch; each sample's products are the same in any chunking.
+    """
+    B = d.shape[0]
+    Dn, M = W.shape
+    out = torch.empty((B, Dn, Dn), dtype=W.dtype, device=W.device)
+    step = max(1, _GRAM_CHUNK_BYTES // max(1, Dn * M * W.element_size()))
+    Wt = W.T
+    for s in range(0, B, step):
+        out[s:s + step] = matmul(W[None] * d[s:s + step, None, :], Wt,
+                                 precision)
+    return out

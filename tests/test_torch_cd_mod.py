@@ -130,8 +130,8 @@ def test_cd_mod_vector_alpha_through_sparse_encode(rng, form):
 
 def test_other_devices_raise_and_omp_is_not_ported():
     """A tensor neither on the CPU nor on a card raises in both wrappers;
-    an algorithm not ported yet ('gpsr': 'omp' is ported now) names its
-    ROADMAP item."""
+    'gpsr', which raised here until it was ported, dispatches and matches
+    JAX's objective within 1e-3 (tests/test_gpsr.py:66)."""
     b = torch.zeros((8, 128), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfused.fused_cd_steps(b, b, torch.ones((8, 1), device="meta"),
@@ -143,5 +143,9 @@ def test_other_devices_raise_and_omp_is_not_ported():
             torch.zeros((8,), dtype=torch.bool, device="meta"),
             torch.zeros((4, 128), device="meta"),
             torch.ones((128,), device="meta"), 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tencode(torch.zeros((2, 4)), torch.zeros((4, 3)), algorithm="gpsr")
+    x, W = cdm_problem(np.random.default_rng(3), n_=4, d=8, k=12)
+    zt = n(tencode(t(x), t(W), 0.2, algorithm="gpsr"))
+    zj = n(jencode(x, W, 0.2, algorithm="gpsr"))
+    f_t, f_j = (0.5 * np.sum((z @ W.T - x) ** 2) + 0.2 * np.abs(z).sum()
+                for z in (zt.astype(np.float64), zj.astype(np.float64)))
+    assert abs(f_t - f_j) <= 1e-3 * max(1.0, abs(f_j))

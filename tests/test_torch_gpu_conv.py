@@ -25,6 +25,11 @@ from lasso_tpu_torch.ops import fused_conv as TC
 from _torch_port import n
 
 pytestmark = pytest.mark.gpu
+
+if not torch.cuda.is_available():
+    # without a card the whole module skips at collection, so that its
+    # tests are not collected one by one only to skip
+    pytest.skip("needs a CUDA card", allow_module_level=True)
 TOL = {"f32": (3e-5, 1e-5), "bf16": (1e-3, 1e-4)}
 
 

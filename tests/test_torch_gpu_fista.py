@@ -28,6 +28,11 @@ from _torch_port import make_problem, n, t
 
 pytestmark = pytest.mark.gpu
 
+if not torch.cuda.is_available():
+    # without a card the whole module skips at collection, so that its
+    # tests are not collected one by one only to skip
+    pytest.skip("needs a CUDA card", allow_module_level=True)
+
 SHAPES = [(37, 45, 301), (200, 300, 500), (256, 128, 384)]
 IDS = ["odd", "ragged", "aligned"]
 

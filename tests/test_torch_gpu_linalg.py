@@ -22,6 +22,11 @@ from _torch_port import assert_same_fit, n, omp_problem, t
 
 pytestmark = pytest.mark.gpu
 
+if not torch.cuda.is_available():
+    # without a card the whole module skips at collection, so that its
+    # tests are not collected one by one only to skip
+    pytest.skip("needs a CUDA card", allow_module_level=True)
+
 
 def _need_card():
     if not torch.cuda.is_available():

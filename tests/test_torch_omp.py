@@ -11,6 +11,7 @@ tests/test_omp.py:207-222 (codes rtol 1e-4 / atol 1e-5 when every support
 agrees, else the per-row rss rtol 1e-3); ``n_iter`` equal.
 """
 
+import importlib
 import json
 import warnings
 
@@ -169,27 +170,35 @@ def test_dispatch_sparse_encode_chunked_and_cli(tmp_path):
     np.testing.assert_array_equal(np.load(tmp_path / "Z.npy"), zc)
 
 
-def test_unported_and_invalid_requests_raise():
-    """'cg' is not ported; nor is 'auto' where the JAX package takes 'cg':
-    without the append route (use_pallas=False, float64) above
-    N T^2 = 2^27."""
-    x, W = (t(a) for a in omp_problem(0, 10, 32, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tomp(x, W, 4, solver="cg")
-    xb = torch.zeros(8193, 128)
-    Wb = torch.eye(128)
-    assert 8193 * 128 * 128 > 2 ** 27
+def test_unported_and_invalid_requests_raise(monkeypatch):
+    """'cg' (ported with conjgrad_per_row) runs and matches JAX's by
+    ``_assert_same_fit``; 'auto' takes it above N T^2 = _CG_CROSSOVER
+    (2^27, lowered here to this size) wherever the append route is off
+    (use_pallas=False, float64), and 'chol-full' at the crossover; invalid
+    requests raise."""
+    x, W = omp_problem(0, 10, 32, 64)
+    zj, kj, zt, kt = both(x, W, 4, solver="cg")
+    assert kt == kj == 4
+    assert_same_fit(x, W, zj, zt)
+    omp_mod = importlib.import_module("lasso_tpu_torch.linear.solvers.omp")
+    assert omp_mod._CG_CROSSOVER == 2 ** 27
     for kw in ({"use_pallas": False}, {"use_pallas": True}):
-        for xs, Ws in ((xb, Wb), (xb.double(), Wb.double())):
-            if kw["use_pallas"] and xs.dtype == torch.float32:
-                continue                       # the append route: no raise
-            with pytest.raises(NotImplementedError, match="'cg'.*ROADMAP"):
-                tomp(xs, Ws, 128, **kw)
+        for dtype in (torch.float32, torch.float64):
+            if kw["use_pallas"] and dtype == torch.float32:
+                continue                       # the append route
+            xs, Ws = t(x).to(dtype), t(W).to(dtype)
+            monkeypatch.setattr(omp_mod, "_CG_CROSSOVER", 10 * 4 * 4 - 1)
+            z_auto = tomp(xs, Ws, 4, **kw)
+            assert torch.equal(z_auto, tomp(xs, Ws, 4, solver="cg", **kw))
+            assert_same_fit(x, W, zj, n(z_auto).astype(np.float32))
+            monkeypatch.setattr(omp_mod, "_CG_CROSSOVER", 10 * 4 * 4)
+            assert torch.equal(tomp(xs, Ws, 4, **kw),
+                               tomp(xs, Ws, 4, solver="chol-full", **kw))
     with pytest.raises(ValueError, match="solver"):
-        tomp(x, W, 4, solver="lars")
+        tomp(t(x), t(W), 4, solver="lars")
     for T in (0, 33):
         with pytest.raises(ValueError, match="n_nonzero_coefs"):
-            tomp(x, W, T)
+            tomp(t(x), t(W), T)
 
 
 def test_default_budget_and_verbose(capsys):
