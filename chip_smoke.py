@@ -241,6 +241,29 @@ before the last line is printed.
    under the bound of the solver's JAX test, an objective at most its
    z0's, finite codes, and the KKT violation.
 
+17. Conv dictionary learning and implicit differentiation, the main run
+   of this slice: ``conv_dict_learning`` at ``benchmarks/conv_dl_bench.py``'s
+   widths (the rich 64x16x32x32 images with 256 filters 5x5 and the
+   headline 256x1x32x32 with 64 filters 7x7; alpha 0.1, constrained, 5 EM
+   steps, E-steps of 30 iterations at tol 0) in 'f32' and 'mixed', each on
+   its own input after a warm-up run under CUDA's sync debug mode: EM
+   steps/s, one step's E-step and M-step time, CG iterations an M-step,
+   host syncs an EM step, and K9a/K9b launches (counts set to 0 just
+   before the run, 150 each), losses finite and non-increasing, unit
+   filters within 1e-4, and an unfused 'f32' run whose losses agree at
+   rtol 1e-4. Then the gradient of sum(z^2) in x and W through
+   ``make_implicit_encoder`` (K1 + K2) and ``make_implicit_group_encoder``
+   (groups of 8, lr 0.05; K1 + K2 + K5) at 16384x512->2048 and through
+   ``make_implicit_conv_encoder`` (K9a + K9b) at the conv headline, 200
+   iterations at tol 0, 64 CG iterations: forward and backward seconds,
+   the backward's CG iterations and syncs, the forward's launches, the
+   support; each held to the same gradient with ``use_pallas=False``
+   under the bounds of ``IMPLICIT_BOUND`` (near-singular supports make
+   the ridge-free gradient sensitive), and the linear and group ones
+   again with ridge 1.0, their agreeing samples within 1e-3. Phase 17's
+   launches are added to the rows of the same kernel at the same shape;
+   K9a/K9b at the rich width get rows of their own (phase 14's timings).
+
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -274,7 +297,10 @@ from lasso_tpu_torch import linear  # noqa: E402
 from lasso_tpu_torch.linear import lasso_path, sparse_encode  # noqa: E402
 from lasso_tpu_torch.linear.solvers import coord_descent_mod  # noqa: E402
 from lasso_tpu_torch.conv2d import (  # noqa: E402
-    ista_conv2d, lip_bound_conv2d, lip_constant)
+    conv_dict_learning, ista_conv2d, lip_bound_conv2d, lip_constant,
+    make_implicit_conv_encoder, update_kernel_constrained)
+from lasso_tpu_torch.linear import (  # noqa: E402
+    make_implicit_encoder, make_implicit_group_encoder)
 from lasso_tpu_torch.ops import _cuda  # noqa: E402
 from lasso_tpu_torch.ops import batched_cholesky as B  # noqa: E402
 from lasso_tpu_torch.ops import fused_cd as C  # noqa: E402
@@ -2258,7 +2284,8 @@ def phase_conv_kernels():
     """K9a and K9b (csrc/conv.cu) against their plain versions on the card:
     three sub-steps of fused_conv_fista_multistep at every listed shape in
     f32 and bf16; then each kernel alone at the headline and rich shapes,
-    timed beside its plain version, cuDNN and its bound."""
+    timed beside its plain version, cuDNN and its bound. Returns the rows
+    of the headline shape and those of the rich one."""
     cases = [  # (label, n, cz, cx, hz, wz, kh, kw, pad, options)
         ("ragged 4x2 pad 1 nonneg", 3, 8, 2, 7, 9, 4, 2, 1,
          {"nonneg": True}),
@@ -2303,7 +2330,7 @@ def phase_conv_kernels():
                   and t_same, f"K9a/K9b {label} {kp} against plain")
         del x, W, z, zp
 
-    rows = {}
+    rows, rich_rows = {}, {}
     NF = torch.nn.functional
     for cfg in ("headline", "rich"):
         n, cz, cx, hz, k = conv_geometry(cfg)
@@ -2356,6 +2383,12 @@ def phase_conv_kernels():
                        "library_ms": graph_ms(library, reps=10)}
                 if cfg == "headline":
                     rows[name] = row
+                else:
+                    rich_rows[name] = {
+                        "name": name,
+                        "shape": f"{n}x{cx}x32x32, {cz} atoms {k}x{k}",
+                        **{key: v for key, v in row.items()
+                           if key != "name"}}
                 print(f"[14] {cfg} {n}x{cx}->{cz} {k}x{k}: {json.dumps(row)} "
                       f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
         step_lib = graph_ms(lambda: NF.conv2d(NF.conv_transpose2d(z, W) - x,
@@ -2366,7 +2399,7 @@ def phase_conv_kernels():
               f"{max(bounds[0][0] + bounds[1][0], 2 * bounds[0][1]):.4f} "
               f"ms")
         del x, W, z, zp, r_out, z_out, scratch
-    return rows
+    return rows, rich_rows
 
 
 def conv_problem(cfg, reps):
@@ -2889,6 +2922,283 @@ def phase_solvers(x_np, W_np):
     return counts, row
 
 
+# phase 17: conv dictionary learning at benchmarks/conv_dl_bench.py's
+# settings, and implicit gradients at benchmarks/group_bench.py:90-103's
+CONV_DL_STEPS, CONV_DL_ITERS = 5, 30
+IMPLICIT_ITERS, IMPLICIT_CG = 200, 64
+# The bounds of the implicit gradients against the same gradients with
+# use_pallas=False, written in PERF.md before the first run on the card.
+# At alpha 0.1 the linear supports come near D (491 of 512 a row on the
+# CPU, 256 rows) and the group supports far past it, so H_SS is near
+# singular and a 1e-5 change in the codes moves the gradient by 6-13%
+# there (x and W together, the ridge-free run); a code entry on one side
+# of support_eps in one route and not in the other changes its row's
+# system. So the ridge-free run is held to these whole-gradient bounds
+# (four times the CPU estimate), and a run with ridge 1.0 (conv: the same
+# run) holds the rows whose supports agree to 1e-3 in x and the whole W
+# gradient to 1e-2. Parting support entries: at most 1e-4 of the codes.
+IMPLICIT_BOUND = {"linear": 0.3, "group": 0.5, "conv": 1e-2}
+IMPLICIT_RIDGE = 1.0
+AGREEING_BOUND, W_BOUND, PARTING_SHARE = 1e-3, 1e-2, 1e-4
+# Written in PERF.md before the run that first read them: in the run with
+# ridge 1.0 the x gradient of the samples whose supports part, as a whole,
+# to 0.3 (a parting entry is one near support_eps, and with the ridge it
+# moves its row's gradient by a few per cent); and in the ridge-free run
+# every sample's codes to 1e-2 of their norm, so that a fault confined to
+# a few rows, which would part their supports and leave the agreeing
+# check, still fails.
+PARTING_GRAD_BOUND, ROW_CODE_BOUND = 0.3, 1e-2
+# the encoders' support threshold, passed to them and used to compare the
+# two routes' supports
+SUPPORT_EPS = 1e-7
+# the kernels each encoder's forward launches once an iteration
+IMPLICIT_KERNELS = {
+    "linear": ("fista_resid_f32", "fista_grad_prox_f32"),
+    "group": ("fista_resid_f32", "fista_grad_prox_f32", "group_prox_f32"),
+    "conv": ("conv_decode_resid_f32", "conv_adjoint_prox_f32")}
+# conv DL: timed windows of CONV_DL_STEPS EM steps on the same input, and
+# repeats of one step's parts; medians and spreads printed
+CONV_DL_WINDOWS, CONV_DL_PART_REPEATS = 5, 3
+
+
+def conv_dl_run(X, cz, k, seed, **kw):
+    """conv_dict_learning at phase 17's settings: (weight, losses)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return conv_dict_learning(X, cz, k, alpha=CONV_ALPHA,
+                              steps=CONV_DL_STEPS, constrained=True,
+                              maxiter=CONV_DL_ITERS, tol=0.0, generator=g,
+                              **kw)
+
+
+def phase_conv_dl():
+    """Conv dictionary learning at conv_dl_bench.py's two widths (the main
+    run of this part, timed in CONV_DL_WINDOWS windows: counts set to 0
+    just before each window and read just after), 'f32' and 'mixed' on
+    distinct inputs after a warm-up run each, the losses and filters
+    checked, and an unfused 'f32' run held to the fused one. Returns
+    {config: {kernel symbol: launches}}."""
+    launches = collections.defaultdict(collections.Counter)
+    for cfg in ("rich", "headline"):
+        n, cz, cx, hz, k = conv_geometry(cfg)
+        rng = np.random.default_rng(17)
+        xs = [torch.from_numpy(rng.standard_normal((n, cx, 32, 32)).astype(
+            np.float32)).to(DEV) for _ in range(3)]
+        fused = {}
+        for label, kw, x in (("f32", {}, xs[1]),
+                             ("mixed", {"kernel_precision": "mixed"}, xs[2])):
+            # the warm-up run, under CUDA's sync debug mode
+            _, syncs = count_syncs(lambda: conv_dl_run(xs[0], cz, k, 0, **kw))
+            rates, windows = [], []
+            for _ in range(CONV_DL_WINDOWS):
+                torch.cuda.synchronize()
+                INNER_ITERATIONS.clear()
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                W, losses = conv_dl_run(x, cz, k, 1, **kw)
+                losses = losses.cpu()
+                rates.append(CONV_DL_STEPS / (time.perf_counter() - t0))
+                launches[cfg].update(_cuda.launch_counts())
+                windows.append((conv_launches({}),
+                                INNER_ITERATIONS["conjgrad"]))
+            per_kernel, cg = windows[0]
+            # one EM step by its parts, the E-step, then the M-step
+            t_e, t_m = [], []
+            for _ in range(CONV_DL_PART_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Z = ista_conv2d(x, torch.zeros(n, cz, hz, hz, device=DEV), W,
+                                CONV_ALPHA, maxiter=CONV_DL_ITERS, tol=0.0,
+                                **kw)
+                torch.cuda.synchronize()
+                t_e.append(time.perf_counter() - t0)
+                update_kernel_constrained(x, Z, W, generator=torch.Generator(
+                    device=DEV).manual_seed(2))
+                torch.cuda.synchronize()
+                t_m.append(time.perf_counter() - t0 - t_e[-1])
+            norms = torch.linalg.vector_norm(W.reshape(cz, -1), dim=1)
+            ls = losses.numpy().astype(np.float64)
+            monotone = bool(np.all(np.diff(ls) <= 1e-6 * ls[:-1]))
+            print(f"[17] conv_dict_learning {cfg} {n}x{cx}x32x32, {cz} "
+                  f"filters {k}x{k}, {label}: median "
+                  f"{float(np.median(rates)):.3f} EM steps/s over "
+                  f"{CONV_DL_WINDOWS} windows of {CONV_DL_STEPS} steps (min "
+                  f"{min(rates):.3f}, max {max(rates):.3f}: "
+                  f"{[round(r, 3) for r in rates]}); one step's E-step "
+                  f"median {float(np.median(t_e)):.4f} s, M-step "
+                  f"{float(np.median(t_m)):.4f} s (of {CONV_DL_PART_REPEATS}: "
+                  f"{[round(v, 4) for v in t_e]}, "
+                  f"{[round(v, 4) for v in t_m]}); CG iterations an M-step "
+                  f"{cg / CONV_DL_STEPS:g}; host syncs an EM step "
+                  f"{syncs / CONV_DL_STEPS:g} (sync debug mode, the warm-up "
+                  f"run); K9a, K9b launches a window {per_kernel}; losses "
+                  f"{[float(v) for v in ls]} (monotone {monotone}); max "
+                  f"||filter|| - 1 {float((norms - 1).abs().max()):.3e}")
+            want = CONV_DL_STEPS * CONV_DL_ITERS
+            check(all(w[0] == [want, want] for w in windows),
+                  f"conv DL {cfg} {label}: K9a/K9b launches "
+                  f"{[w[0] for w in windows]}, want {want} each a window")
+            check(bool(np.isfinite(ls).all()) and monotone,
+                  f"conv DL {cfg} {label}: losses finite and non-increasing")
+            check(float((norms - 1).abs().max()) <= 1e-4,
+                  f"conv DL {cfg} {label}: unit filters")
+            fused[label] = (W, ls)
+        # the unfused route (cuDNN, TF32 off) on the f32 run's input
+        before = _cuda.launch_counts()
+        W_u, losses_u = conv_dl_run(xs[1], cz, k, 1, use_pallas=False)
+        ls_u = losses_u.cpu().numpy().astype(np.float64)
+        W_f, ls_f = fused["f32"]
+        rel = np.abs(ls_f - ls_u) / np.abs(ls_u)
+        print(f"[17] conv_dict_learning {cfg} unfused f32: losses "
+              f"{[float(v) for v in ls_u]}; fused relative {rel.max():.3e} "
+              f"(rtol 1e-4 at every step); max |W_fused - W_unfused| "
+              f"{float((W_f - W_u).abs().max()):.3e}")
+        check(bool((rel <= 1e-4).all()) and conv_launches(before) == [0, 0],
+              f"conv DL {cfg}: fused f32 losses against the unfused route")
+        del xs, fused
+    return launches
+
+
+def support_parts(zf, zp):
+    """(entries where two codes' supports part, a mask of the samples whose
+    supports agree)."""
+    part = ((zf.abs() > SUPPORT_EPS) != (zp.abs() > SUPPORT_EPS)).reshape(
+        zf.shape[0], -1)
+    return int(part.sum()), ~part.any(dim=1)
+
+
+def worst_row(zf, zp):
+    """The largest relative difference of one sample's codes."""
+    zf, zp = zf.reshape(zf.shape[0], -1), zp.reshape(zp.shape[0], -1)
+    num = torch.linalg.vector_norm(zf - zp, dim=1)
+    den = torch.linalg.vector_norm(zp, dim=1).clamp_min(1e-30)
+    return float((num / den).max())
+
+
+def implicit_gradient(enc, x, W, alpha):
+    """The gradient of sum(z^2) with respect to x and W through ``enc``,
+    run twice: first under CUDA's sync debug mode (forward and backward
+    apart), then timed, forward and backward apart, with the forward's
+    launches (counts set to 0 just before it and read just after) and the
+    backward's CG iterations."""
+    def once():
+        xg, Wg = x.clone().requires_grad_(), W.clone().requires_grad_()
+        return xg, Wg, enc(xg, Wg, alpha)
+
+    (xg, Wg, z), fwd_syncs = count_syncs(once)
+    _, bwd_syncs = count_syncs(lambda: torch.sum(z ** 2).backward())
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    xg, Wg, z = once()
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    INNER_ITERATIONS.clear()
+    t0 = time.perf_counter()
+    torch.sum(z ** 2).backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    return types.SimpleNamespace(
+        z=z.detach(), gx=xg.grad, gW=Wg.grad, t_fwd=t_fwd, t_bwd=t_bwd,
+        syncs=(fwd_syncs, bwd_syncs),
+        cg=INNER_ITERATIONS["conjgrad_per_row"], launches=launches)
+
+
+def check_implicit_launches(kind, fused, plain):
+    """Each of the encoder's kernels launched once an iteration in the
+    fused forward, and no kernel in the unfused one."""
+    reached = {name: fused.launches.get(name, 0)
+               for name in IMPLICIT_KERNELS[kind]}
+    check(set(reached.values()) == {IMPLICIT_ITERS} and not plain.launches,
+          f"implicit {kind}: forward launches {reached} (want "
+          f"{IMPLICIT_ITERS} each), unfused {plain.launches} (want none)")
+
+
+def rel_norm(a, b):
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def phase_implicit():
+    """Implicit gradients at full width: the linear encoder (K1 + K2) and
+    the group encoder (K1 + K2 + K5) at 16384x512->2048, the conv encoder
+    (K9a + K9b) at conv_fused_bench.py's headline; each held to the same
+    gradient with use_pallas=False, and the linear and group ones again
+    with a ridge. Returns the forward launches of the timed runs."""
+    x_np, W_np = group_problem()
+    x, W = torch.from_numpy(x_np).to(DEV), torch.from_numpy(W_np).to(DEV)
+    lr = float(1.0 / lipschitz_constant(W))
+    xs_c, Wc_np = conv_problem("headline", 1)
+    xc, Wc = torch.from_numpy(xs_c[0]).to(DEV), torch.from_numpy(Wc_np).to(DEV)
+    lr_c = float(1.0 / lip_bound_conv2d(Wc, 0))
+    solve = dict(maxiter=IMPLICIT_ITERS, tol=0.0, cg_iters=IMPLICIT_CG,
+                 support_eps=SUPPORT_EPS)
+    encoders = {
+        "linear": (lambda **kw: make_implicit_encoder(lr=lr, **solve, **kw),
+                   x, W),
+        "group": (lambda **kw: make_implicit_group_encoder(
+            groups=GS, lr=GROUP_LR, **solve, **kw), x, W),
+        "conv": (lambda **kw: make_implicit_conv_encoder(
+            lr=lr_c, **solve, **kw), xc, Wc)}
+    launches = collections.Counter()
+    for kind, (make, xi, Wi) in encoders.items():
+        run = implicit_gradient(make(), xi, Wi, GROUP_ALPHA)
+        launches.update(run.launches)
+        plain = implicit_gradient(make(use_pallas=False), xi, Wi,
+                                  GROUP_ALPHA)
+        check_implicit_launches(kind, run, plain)
+        parting, agree = support_parts(run.z, plain.z)
+        row = worst_row(run.z, plain.z)
+        support = (run.z != 0).reshape(run.z.shape[0], -1).sum(dim=1).float()
+        gx = run.gx.reshape(agree.shape[0], -1)
+        gx_p = plain.gx.reshape(agree.shape[0], -1)
+        rx, rW = rel_norm(run.gx, plain.gx), rel_norm(run.gW, plain.gW)
+        r_agree = rel_norm(gx[agree], gx_p[agree])
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in (run.gx, run.gW, plain.gx, plain.gW))
+        print(f"[17] implicit {kind} {tuple(xi.shape)} -> {tuple(run.z.shape)}: "
+              f"{run.t_fwd + run.t_bwd:.4f} s a gradient (forward "
+              f"{run.t_fwd:.4f}, backward {run.t_bwd:.4f}; unfused forward "
+              f"{plain.t_fwd:.4f}, backward {plain.t_bwd:.4f}); backward CG "
+              f"iterations {run.cg}, syncs forward / backward {run.syncs}; "
+              f"forward launches {json.dumps(run.launches)}; support a "
+              f"sample mean {float(support.mean()):.2f}, max "
+              f"{float(support.max()):g}; against use_pallas=False: supports "
+              f"part on {parting} entries ({int((~agree).sum())} samples), "
+              f"x grad relative {rx:.3e}, W grad {rW:.3e} (bound "
+              f"{IMPLICIT_BOUND[kind]:g}), x grad on the agreeing samples "
+              f"{r_agree:.3e}; codes of the worst sample relative {row:.3e} "
+              f"(bound {ROW_CODE_BOUND:g})")
+        check(finite and parting <= PARTING_SHARE * run.z.numel()
+              and max(rx, rW) <= IMPLICIT_BOUND[kind]
+              and row <= ROW_CODE_BOUND,
+              f"implicit {kind}: fused against plain")
+        if kind != "conv":
+            ridged = [implicit_gradient(make(ridge=IMPLICIT_RIDGE, **kw), xi,
+                                        Wi, GROUP_ALPHA)
+                      for kw in ({}, {"use_pallas": False})]
+            launches.update(ridged[0].launches)
+            check_implicit_launches(kind, *ridged)
+            parting, agree = support_parts(ridged[0].z, ridged[1].z)
+            gx, gx_p = ridged[0].gx, ridged[1].gx
+            r_agree = rel_norm(gx[agree], gx_p[agree])
+            r_part = rel_norm(gx[~agree], gx_p[~agree]) if parting else 0.0
+            rW = rel_norm(ridged[0].gW, ridged[1].gW)
+            print(f"[17] implicit {kind}, ridge {IMPLICIT_RIDGE}: "
+                  f"{ridged[0].t_fwd + ridged[0].t_bwd:.4f} s a gradient, "
+                  f"backward CG iterations {ridged[0].cg}; against "
+                  f"use_pallas=False: supports part on {parting} entries, x "
+                  f"grad on the agreeing samples {r_agree:.3e} (bound "
+                  f"{AGREEING_BOUND:g}), on the {int((~agree).sum())} parting "
+                  f"samples {r_part:.3e} (bound {PARTING_GRAD_BOUND:g}), W "
+                  f"grad {rW:.3e} (bound {W_BOUND:g})")
+            check(r_part <= PARTING_GRAD_BOUND,
+                  f"implicit {kind}, ridge: parting samples against plain")
+        check(r_agree <= AGREEING_BOUND and rW <= W_BOUND,
+              f"implicit {kind}: agreeing samples and W against plain")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2958,7 +3268,7 @@ def main():
     counts = phase_chol_full(*omp_problem())
     chol_row = {**chol_row, "launches": counts["chol_solve"]}
     rows.append(chol_row)
-    conv_rows = phase_conv_kernels()
+    conv_rows, conv_rich_rows = phase_conv_kernels()
     counts = phase_conv_slice()
     for name, row in conv_rows.items():
         rows.append({**row, "launches": counts.get(name, 0)})
@@ -2968,6 +3278,28 @@ def main():
     # their Cholesky routes at the training width
     rows.append({**chol_train_row, "launches": counts["chol_solve"]})
     print(f"[16] phase time {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    dl = phase_conv_dl()
+    implicit = phase_implicit()
+    # phase 17's launches go to the rows of the same kernel at the same
+    # shape: K1, K2 and K5 at the headline, K9a/K9b at the conv headline
+    # (conv DL and the conv encoder) and at the rich width (conv DL), the
+    # rich rows phase 14's timings of that shape
+    added = collections.Counter(implicit)
+    added.update(dl["headline"])
+    names = ("fista_resid_f32", "fista_grad_prox_f32", "group_prox_f32",
+             *(f"{k}_{kp}" for k in ("conv_decode_resid", "conv_adjoint_prox")
+               for kp in ("f32", "bf16")))
+    launched = {name: added[name] for name in names}
+    rich = {name: dl["rich"][name] for name in conv_rich_rows}
+    print(f"[17] launches: {json.dumps(launched)}; at the rich width "
+          f"{json.dumps(rich)}")
+    for row in rows:
+        if row["name"] in launched and "shape" not in row:
+            row["launches"] += launched[row["name"]]
+    rows.extend({**row, "launches": rich[name]}
+                for name, row in conv_rich_rows.items())
+    print(f"[17] phase time {time.perf_counter() - t17:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)

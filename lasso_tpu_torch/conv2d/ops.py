@@ -90,6 +90,29 @@ def conv2d(x, kernel, stride=1, padding=0, precision=None, method="auto"):
                          padding=(ph, pw))
 
 
+def _code_shape(x_shape, weight_shape, stride=1, padding=0):
+    """The shape of ``conv2d(x, weight)``, the codes of images ``x``, from
+    the shapes alone."""
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    kh, kw = weight_shape[2], weight_shape[3]
+    return (x_shape[0], weight_shape[0], (x_shape[2] + 2 * ph - kh) // sh + 1,
+            (x_shape[3] + 2 * pw - kw) // sw + 1)
+
+
+def _conv2d_weight(x, grad_out, weight_shape, stride=1, padding=0):
+    """The gradient of ``<conv2d(x, V), grad_out>`` with respect to V: the
+    adjoint of V -> ``conv2d(x, V)``, and so also of V ->
+    ``conv_transpose2d(grad_out, V)`` (``<conv_transpose2d(z, V), x> =
+    <z, conv2d(x, V)>``). One library convolution over the batch, at the
+    global precision."""
+    def fn(a, b, **kw):
+        return torch.nn.grad.conv2d_weight(a, weight_shape, b, **kw)
+
+    return _library_conv(fn, x, grad_out, None, stride=_pair(stride),
+                         padding=_pair(padding))
+
+
 def _conv_transpose2d_gemm(z, kernel, ph, pw, precision):
     """Stride-1 conv_transpose as one pointwise GEMM over C_in, ``[N*H*W,
     C_in] x [C_in, C_out*kh*kw]``, then the overlap-add of the kh*kw taps

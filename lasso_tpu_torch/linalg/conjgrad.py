@@ -177,3 +177,27 @@ def batch_cg(A, b, maxiter=None, tol=1e-10, rtol=1.0, precision=None,
         maxiter = 20 * b.shape[1]
     Adot = lambda v: matmul(v, A.T, precision)
     return conjgrad(b, Adot, row_dot, maxiter, tol, rtol, **kwargs)
+
+
+def batch_cg_conv2d(kernel, b, tik=0.0, maxiter=None, tol=1e-10, rtol=1.0,
+                    stride=1, padding=0, **kwargs):
+    """CG on the conv normal operator ``W^T W + tik I``, where ``W v =
+    conv_transpose2d(v, kernel)``: kernel ``[C_z, C_x, kh, kw]``, b ``[B,
+    C_z, H, W]``. Per-sample inner products, batch-global stops."""
+    from lasso_tpu_torch.conv2d.ops import conv2d, conv_transpose2d
+
+    assert kernel.ndim == 4 and b.ndim == 4
+    if maxiter is None:
+        maxiter = 20 * b[0].numel()
+
+    def Adot(v):
+        Av = conv_transpose2d(v, kernel, stride=stride, padding=padding)
+        Av = conv2d(Av, kernel, stride=stride, padding=padding)
+        if tik > 0:
+            Av = Av + tik * v
+        return Av
+
+    def dot(u, v):
+        return torch.sum(u * v, dim=(1, 2, 3), keepdim=True)
+
+    return conjgrad(b, Adot, dot, maxiter, tol, rtol, **kwargs)

@@ -44,16 +44,19 @@ def from_numpy_params(params, device, padding=None):
     shapes agree; a block size stays a Python int, and an id array becomes
     an integer tensor of its own int32 or int64 type.
 
-    A 4-D ``'weight'`` is a conv dictionary ``[C_z, C_x, kh, kw]``; then
-    only ``'x'`` (``[N, C_x, H, W]``), ``'z0'`` (``[N, C_z, H_z, W_z]``)
-    and ``'alpha'`` (a scalar, per-sample ``[N]`` / ``[N, 1]``, or
-    per-channel ``[1, C_z]`` / ``[C_z]``) may come with it. At stride 1
+    A 4-D ``'weight'`` or ``'weight0'`` is a conv dictionary ``[C_z, C_x,
+    kh, kw]`` (``'weight0'`` the initial filters of a training run); then
+    only ``'x'`` (``[N, C_x, H, W]``), ``'z0'`` (``[N, C_z, H_z, W_z]``),
+    ``'alpha'`` (a scalar, per-sample ``[N]`` / ``[N, 1]``, or
+    per-channel ``[1, C_z]`` / ``[C_z]``) and the replacement filters of
+    each training step as the JAX package draws them, ``'step_rand'``
+    (``[steps, C_z, C_x, kh, kw]``), may come with it. At stride 1
     ``H_z = H + 2 p - kh + 1`` (and likewise for the width): with
     ``padding`` given, x and z0 are checked against it; without it, a
     given pair x, z0 must agree with one padding p >= 0 of both axes.
     """
     device = resolve_device(device)
-    w = params.get("weight")
+    w = params.get("weight", params.get("weight0"))
     if w is not None and np.ndim(w) == 4:
         return _conv_params(params, device, padding)
     if padding is not None:
@@ -135,12 +138,22 @@ def from_numpy_params(params, device, padding=None):
 
 def _conv_params(params, device, padding):
     """:func:`from_numpy_params` for a conv dictionary."""
-    unknown = set(params) - {"weight", "x", "z0", "alpha"}
+    unknown = set(params) - {"weight", "weight0", "x", "z0", "alpha",
+                             "step_rand"}
     if unknown:
         raise ValueError(f"unknown parameters {sorted(unknown)} for a conv "
                          f"dictionary")
     arrays = {k: np.asarray(v, dtype=np.float32) for k, v in params.items()}
-    Cz, Cx, kh, kw = arrays["weight"].shape
+    shape = arrays.get("weight", arrays.get("weight0")).shape
+    for name in ("weight", "weight0"):
+        if name in arrays and arrays[name].shape != shape:
+            raise ValueError(f"{name} has shape {arrays[name].shape}, "
+                             f"expected {list(shape)}")
+    Cz, Cx, kh, kw = shape
+    rand = arrays.get("step_rand")
+    if rand is not None and (rand.ndim != 5 or rand.shape[1:] != shape):
+        raise ValueError(f"step_rand has shape {rand.shape}, expected "
+                         f"[steps, {Cz}, {Cx}, {kh}, {kw}]")
     x, z0 = arrays.get("x"), arrays.get("z0")
     if x is not None and (x.ndim != 4 or x.shape[1] != Cx):
         raise ValueError(f"x has shape {x.shape}, expected [N, {Cx}, H, W]")

@@ -27,6 +27,20 @@ def release_jax_after_module():
         jax.clear_caches()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's port code on one intra-op thread. Its loops run
+    thousands of tiny operations, and under pytest-xdist six workers of
+    one thread per core each spin their OpenMP teams against each other
+    (on an 8-core machine the two files that use this fixture took 268 s
+    on six workers with PyTorch's default threads and 30 s with one). The
+    worker's setting comes back after the module."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def make_problem(rng, n=32, d=128, k=256):
     """x [n, d], z and z_prev [n, k] (small), W [d, k] with unit-ish
     columns, as float32 numpy arrays."""

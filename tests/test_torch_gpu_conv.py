@@ -18,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from lasso_tpu_torch.conv2d import ista_conv2d, lip_constant
+from lasso_tpu_torch.conv2d import (conv_transpose2d, ista_conv2d,
+                                    lip_constant, make_implicit_conv_encoder)
+from lasso_tpu_torch.conv2d.ops import _conv2d_weight
 from lasso_tpu_torch.ops import _cuda
 from lasso_tpu_torch.ops import fused_conv as TC
 
@@ -138,6 +140,48 @@ def test_ista_conv2d_on_the_card_launches_the_kernels():
                           torch.from_numpy(W), 0.1, use_pallas=True, **kw)
     assert kp_ == 24
     np.testing.assert_allclose(n(zc), n(zp), atol=1e-4)
+
+
+def test_filter_adjoint_and_implicit_gradient_on_the_card():
+    """update_kernel's adjoint on the card, at stride 1 and at stride 2 with
+    an odd image: <conv_transpose2d(Z, V), R> = <V, adj(R)> to 1e-5
+    relative (f32, TF32 off); then one gradient of a small
+    make_implicit_conv_encoder, its forward fused (K9a/K9b, 60 launches
+    each) against the same gradient with use_pallas=False, to 1e-3 of its
+    norm (the forwards part by the bf16x3 split's rounding)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for stride, padding, size in ((1, 0, 12), (2, 1, 13)):
+        V = torch.randn(8, 3, 3, 3, generator=g, device="cuda")
+        hz = (size + 2 * padding - 3) // stride + 1
+        Z = torch.randn(4, 8, hz, hz, generator=g, device="cuda")
+        dec = conv_transpose2d(Z, V, stride=stride, padding=padding)
+        assert tuple(dec.shape[2:]) == (size, size)
+        R = torch.randn(dec.shape, generator=g, device="cuda")
+        lhs = float(torch.sum(dec.double() * R.double()))
+        adj = _conv2d_weight(R, Z, V.shape, stride, padding)
+        rhs = float(torch.sum(V.double() * adj.double()))
+        assert abs(lhs - rhs) <= 1e-5 * abs(lhs), (stride, lhs, rhs)
+    x = torch.randn(4, 1, 16, 16, generator=g, device="cuda")
+    W = torch.randn(16, 1, 5, 5, generator=g, device="cuda") / 5
+    grads = {}
+    for use_pallas in (True, False):
+        enc = make_implicit_conv_encoder(maxiter=60, tol=0.0, lr=0.05,
+                                         cg_iters=64, use_pallas=use_pallas)
+        xg, Wg = x.clone().requires_grad_(), W.clone().requires_grad_()
+        before = _cuda.launch_counts()
+        z = enc(xg, Wg, 0.1)
+        torch.cuda.synchronize()
+        after = _cuda.launch_counts()
+        launched = after.get("conv_decode_resid_f32", 0) - before.get(
+            "conv_decode_resid_f32", 0)
+        assert launched == (60 if use_pallas else 0)
+        torch.sum(z ** 2).backward()
+        grads[use_pallas] = (xg.grad, Wg.grad)
+    for fused, plain in zip(grads[True], grads[False]):
+        assert torch.isfinite(fused).all()
+        assert float(torch.linalg.vector_norm(fused - plain)
+                     / torch.linalg.vector_norm(plain)) < 1e-3
 
 
 def test_kernels_refuse_what_they_do_not_take():
