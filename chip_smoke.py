@@ -38,7 +38,9 @@ before the last line is printed.
    all-f32 solve of the same budget and an 8x-budget f32 anchor (f64
    objectives on the host).
 3. The single-step path: 37 iterations in f32 (two blocks of 16 and five
-   ``fused_fista_step`` calls).
+   ``fused_fista_step`` calls); then ``fused_fista_step`` alone at the
+   headline shape, held to its plain version and timed beside it and the
+   library's products, its own row of the kernels line.
 4. Serving through the CLI: ``python -m lasso_tpu_torch encode`` on 40000
    rows in chunks of 16384 (the last one ragged), checked row for row
    against direct ``sparse_encode`` calls.
@@ -264,6 +266,29 @@ before the last line is printed.
    launches are added to the rows of the same kernel at the same shape;
    K9a/K9b at the rich width get rows of their own (phase 14's timings).
 
+18. The nonlinear solvers at BASELINE.md row 5's width (a tanh-MLP decoder
+   2048x(128->512), hidden width 512), f32 with TF32 off: on a linear
+   decoder (unit atoms, alpha 0.1) ``ista_nl`` at lr 1/L and 'auto',
+   ``owlqn`` batch and per-sample and ``split_bregman_nl('cg')`` on the
+   flattened batch ('exact' on one sample), and ``iterative_ridge_bfgs``
+   at K=256 in both modes from the ridge start, each held to a 3200-
+   iteration FISTA anchor by its JAX test's bound, and ``ista_nl`` held to
+   the linear ista code by code; on the MLP (alpha 0.05) ``ista_nl``
+   (fixed lr, 'auto', lr_refresh 4, restart; 200 iterations at tol 0),
+   ``owlqn`` (brent; per-sample backtracking), ``split_bregman_nl`` and
+   ``iterative_ridge_bfgs`` at K=256 in both modes (the main run of this
+   slice: K8 ``chol_solve`` launches equal to the iterations run, no LU
+   fallback), each run once under CUDA's sync debug mode (its
+   synchronizing calls an iteration) and timed in that run, ``ista_nl`` at
+   a fixed lr and restarted timed three times more, its f64 objective
+   finite and below
+   the start's, lr_refresh 4 within 1e-3 of 1; K8 alone at B=2048, D=256
+   held to its plain version and timed beside it, the library and its
+   bound (its own row of the kernels line); ``make_implicit_nl_encoder``
+   with the linear decoder against ``make_implicit_encoder`` (ridge 1.0),
+   with the MLP in float64 on 64 rows against central differences, and
+   with the MLP in f32 at full width, timed.
+
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -309,7 +334,10 @@ from lasso_tpu_torch.ops import fused_group as G  # noqa: E402
 from lasso_tpu_torch.ops import fused_ista as F  # noqa: E402
 from lasso_tpu_torch.ops import fused_omp as O  # noqa: E402
 from lasso_tpu_torch.ops.common import INNER_ITERATIONS  # noqa: E402
-from lasso_tpu_torch.utils import chunked_encode  # noqa: E402
+from lasso_tpu_torch.nonlinear import (  # noqa: E402
+    hessian_2norm, ista_nl, iterative_ridge_bfgs, make_implicit_nl_encoder,
+    owlqn, split_bregman_nl)
+from lasso_tpu_torch.utils import chunked_encode, from_numpy_tree  # noqa: E402
 
 N, D, K = headline_bench.N, headline_bench.D, headline_bench.K
 ALPHA = headline_bench.ALPHA
@@ -675,6 +703,48 @@ def phase_single_step(x_np, W_np):
                    "fista_resid_f32": 37, "fista_grad_prox_f32": 37}.items():
         check(counts.get(key, 0) == v, f"{key}: {counts.get(key, 0)} != {v}")
     check(bool(torch.isfinite(z).all()), "single-step codes finite")
+
+    # row 1 of PERF.md: fused_fista_step alone at the headline shape in
+    # 'f32', as the five calls above run it (W split once a call, K1 then
+    # K2), held to its plain version (TOL) and timed beside it and the
+    # library's products. The bound: x, z, z_prev and W read once, z_next
+    # written; the two products of the bf16x3 split, three bf16 products
+    # each, on the tensor cores
+    z_prev = torch.zeros_like(z)
+    lr, mom = 0.1, 0.5
+
+    def step():
+        return F.fused_fista_step(x, z, z_prev, W, lr, ALPHA, mom,
+                                  kernel_precision="f32")
+
+    def plain():
+        return F.fused_fista_step_plain(x, z, z_prev, W, lr, ALPHA, mom,
+                                        kernel_precision="f32")
+
+    def library():
+        y = z + mom * (z - z_prev)
+        g = torch.matmul(torch.matmul(y, W.T) - x, W)
+        z_next = torch.nn.functional.softshrink(y - lr * g, ALPHA * lr)
+        return z_next, torch.sum(torch.abs(z_next - z))
+
+    (zk, dk), (zp, dp) = step(), plain()
+    torch.cuda.synchronize()
+    err = float((zk - zp).abs().max())
+    check(err <= TOL["f32"][0] and abs(float(dk) - float(dp))
+          <= TOL["f32"][1] * abs(float(dp)),
+          "fused_fista_step against its plain version at the headline")
+    t_bytes = 4 * (N * D + 3 * N * K + D * K + 1) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * 2 * (2 * N * K * D) / PEAK_FLOPS["bf16"] * 1e3
+    row = {"name": "fused_fista_step", "route": "cuda", "source": SOURCE,
+           "replaces": "lasso_tpu/ops/fused_ista.py:233",
+           "launches": counts.get("fused_fista_step", 0),
+           "max_abs_err": err, "ms": cuda_ms(step),
+           "plain_ms": cuda_ms(plain), "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": cuda_ms(library)}
+    print(f"[3] {json.dumps(row)} (a call: K1 + K2 and W's split; ms, "
+          f"plain_ms and library_ms the mean of 20 calls after 3)")
+    return row
 
 
 def phase_cli():
@@ -2648,7 +2718,8 @@ def count_syncs(fn):
 
 def fista_anchor(x, W, alpha):
     """f64 objective of a deep f32 FISTA solve of the port (lr = 1/L,
-    SOLVER_ANCHOR_ITERS iterations, tol 0, fused 'f32' path)."""
+    SOLVER_ANCHOR_ITERS iterations, tol 0, fused 'f32' path), the drift of
+    half the iterations above it, and the codes."""
     lr = float(1.0 / lipschitz_constant(W))
     z = sparse_encode(x, W, alpha, algorithm="ista", lr=lr, tol=0.0,
                       maxiter=SOLVER_ANCHOR_ITERS, kernel_precision="f32")
@@ -2657,7 +2728,7 @@ def fista_anchor(x, W, alpha):
                          kernel_precision="f32")
     f, f_half = objective64_dev(x, W, z, alpha), objective64_dev(
         x, W, half, alpha)
-    return f, (f_half - f) / abs(f)
+    return f, (f_half - f) / abs(f), z
 
 
 def timed_solve(call, profile=False, host_ops=False):
@@ -2762,7 +2833,7 @@ def phase_solvers(x_np, W_np):
     x = torch.from_numpy(x_np).to(DEV)
     W = torch.from_numpy(W_np).to(DEV)
     t0 = time.perf_counter()
-    f_star, drift = fista_anchor(x, W, ALPHA)
+    f_star, drift, _ = fista_anchor(x, W, ALPHA)
     print(f"[16] FISTA anchor at {N}x{D}->{K}: objective f64 {f_star:.10g}, "
           f"{SOLVER_ANCHOR_ITERS // 2} iterations {drift:.3e} relative above "
           f"it ({time.perf_counter() - t0:.2f} s)")
@@ -2847,7 +2918,7 @@ def phase_solvers(x_np, W_np):
     xs, Ws = headline_bench.make_problem(TRAIN_N, TRAIN_D, TRAIN_K, seed=16)
     xt = torch.from_numpy(xs[0]).to(DEV)
     Wt = torch.from_numpy(Ws).to(DEV)
-    ft_star, drift = fista_anchor(xt, Wt, ALPHA)
+    ft_star, drift, _ = fista_anchor(xt, Wt, ALPHA)
     print(f"[16] FISTA anchor at {TRAIN_N}x{TRAIN_D}->{TRAIN_K}: objective "
           f"f64 {ft_star:.10g}, half its iterations {drift:.3e} above it")
     check(abs(drift) <= 1e-5, "the training-width anchor has converged")
@@ -3199,6 +3270,511 @@ def phase_implicit():
     return launches
 
 
+# phase 18: the nonlinear solvers. The full width is the repo's own
+# nonlinear configuration, BASELINE.md row 5 and docs/PERFORMANCE.md:161: a
+# tanh-MLP decoder x_hat = tanh(z W1) W2 at 2048 x (128 -> 512); the records
+# do not name the hidden width, so H = 512. iterative_ridge_bfgs runs at
+# K = 256, the widest systems K8 takes (its BFGS state [2048, 256, 256] f32,
+# 0.54 GB). Weights are drawn with numpy from a seed, W1 scaled by
+# 1 / sqrt(K) and W2 by 1 / sqrt(H) so that tanh does not saturate; x is
+# the decoder applied to 5%-sparse codes, plus noise at 0.01.
+NL_N, NL_D, NL_K, NL_H, NL_K_IRB = 2048, 128, 512, 512, 256
+NL_ALPHA_LINEAR, NL_ALPHA = ALPHA, 0.05
+NL_ITERS = 200
+# The linear decoder z W^T (unit atoms) against the FISTA anchor, by the
+# bound of each solver's JAX test (tests/test_nonlinear.py:56-117). The
+# budgets, the smallest that met these bounds on the CPU at 256 rows
+# (written in PERF.md before the first run on the card), against the JAX
+# tests':
+# ista_nl 200 iterations at lr 1/L and 100 at lr 'auto' (3000; 200 read
+# 1.1e-6 of the bound's 1e-2), owlqn 50 (150, history 20 as there: 30 read
+# 1.0025 f*), iterative_ridge_bfgs 20 from the ridge start (100: 10 read
+# 1.0047 f*), split_bregman_nl 20 outer iterations on the flattened batch
+# and on one sample (50: 10 read 1.22 f*, 20 1.093), on the batch of one
+# Gauss-Newton step a subproblem (5; the residual is linear: 1.0927 f*).
+# Each run is timed once, under CUDA's sync debug mode, which also counts
+# its synchronizing calls: with three timed runs after a warm-up and a
+# 'cg' run on one sample the phase took 197 s on an H100 (PERF.md), with
+# one timed run after a warm-up 51.6 and 59.1 s, and it has to stay under
+# a minute.
+NL_LINEAR_BUDGET = {"ista": 200, "ista auto": 100, "owlqn": 50, "irb": 20,
+                    "split_bregman": 20}
+
+
+def nl_bound(kind, f, f_star):
+    """The bound of the solver's JAX test, f against the anchor's f*."""
+    if kind == "ista":
+        return abs(f - f_star) <= 1e-2 * max(1.0, abs(f_star))
+    if kind == "split_bregman":
+        return f < 1.15 * f_star + 1e-3
+    return f < 1.1 * f_star
+
+
+# ista_nl at lr 1/L, 200 iterations at tol 0, against sparse_encode's plain
+# ista at the same lr: the same iteration with the gradient by autograd, so
+# the codes within 1e-4 (written before the first run)
+NL_PARITY_ATOL = 1e-4
+# The MLP at alpha 0.05: ista_nl 200 iterations at tol 0; owlqn,
+# iterative_ridge_bfgs and split_bregman_nl at budgets cut to fit the
+# phase's minute (50, 50 and 5 outer iterations of 2 Gauss-Newton steps a
+# subproblem, tol 0); lr_refresh=4 within 1e-3 relative of lr_refresh=1
+# (DIVERGENCES #15 records ~1e-5). ista_nl at a fixed lr and restarted is
+# timed three times after a warm-up run (the median printed), the others
+# in their one run under the sync debug mode, which adds the recording of
+# a warning at each synchronizing call: an iteration of lr 'auto' took 21
+# ms on an H100, and with one timed run after a warm-up the phase took
+# 64.0 s on one card's host (PERF.md).
+NL_MLP_BUDGET = {"owlqn": 50, "irb": 50, "split_bregman": 5}
+NL_REFRESH_RTOL = 1e-3
+# The implicit encoders: the linear decoder at full width with ridge 1.0
+# and 200 forward iterations against make_implicit_encoder(use_pallas=
+# False): parting support entries at most 1e-4 of the codes, the x gradient
+# of the samples whose supports agree within 1e-3, the W and alpha
+# gradients within 1e-2 (phase 17's bounds with ridge); the MLP in float64
+# on 64 rows against central differences along unit directions (step 1e-5;
+# a forward of 600 restarted iterations at 0.9 / L, which the CPU saw
+# converge to about 1e-13) by the bounds of
+# tests/test_implicit_nl.py:45-90
+NL_IMPLICIT = {"agreeing_x": 1e-3, "W": 1e-2, "alpha": 1e-2,
+               "parting_share": 1e-4, "ridge": 1.0}
+NL_FD = {"rows": 64, "iters": 600, "eps": 1e-5, "x": 1e-5, "params": 3e-5,
+         "alpha": 1e-4}
+
+
+def nl_problem(k, seed):
+    """Phase 18's inputs as numpy: the MLP's params {'w1': [k, H], 'w2':
+    [H, D]}, unit atoms W [D, k], x through the MLP and x through W, both
+    from the same 5%-sparse codes."""
+    rng = np.random.default_rng(seed)
+    params = {"w1": rng.standard_normal((k, NL_H)) / np.sqrt(k),
+              "w2": rng.standard_normal((NL_H, NL_D)) / np.sqrt(NL_H)}
+    W = rng.standard_normal((NL_D, k))
+    W /= np.linalg.norm(W, axis=0, keepdims=True)
+    codes = rng.standard_normal((NL_N, k)) * (rng.random((NL_N, k)) < 0.05)
+    x_mlp = (np.tanh(codes @ params["w1"]) @ params["w2"]
+             + 0.01 * rng.standard_normal((NL_N, NL_D)))
+    x_lin = codes @ W.T + 0.01 * rng.standard_normal((NL_N, NL_D))
+    return (params, W.astype(np.float32), x_mlp.astype(np.float32),
+            x_lin.astype(np.float32))
+
+
+def mlp_decoder(p):
+    return lambda z: torch.tanh(z @ p["w1"]) @ p["w2"]
+
+
+def nl_losses(dec, x):
+    """A decoder's batch loss, per-row losses and residual."""
+    return (lambda z: 0.5 * torch.sum(torch.square(dec(z) - x)),
+            lambda z: 0.5 * torch.sum(torch.square(dec(z) - x), dim=1),
+            lambda z: dec(z) - x)
+
+
+def nl_objective64(dec64, x, z, alpha):
+    """The objective of codes z in float64 on the card, through the
+    decoder's float64 twin."""
+    r = dec64(z.double()) - x.double()
+    return float(0.5 * torch.sum(r * r) + alpha * torch.sum(z.double().abs()))
+
+
+def nl_timed(call, repeats=1):
+    """A first run under CUDA's sync debug mode (its synchronizing calls),
+    then ``repeats`` runs timed between two synchronizes (the median kept);
+    with ``repeats=0`` the first run's own time, sync debug mode and all."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (z, k), syncs = count_syncs(call)
+    torch.cuda.synchronize()
+    times = [] if repeats else [time.perf_counter() - t0]
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z, k = call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    k = int(k.reshape(-1)[0]) if torch.is_tensor(k) else int(k)
+    return types.SimpleNamespace(z=z, n_iter=k, seconds=float(np.median(
+        times)), times=times, syncs=syncs, runs=1 + repeats,
+        debug_timed=not repeats)
+
+
+def nl_report(label, run, f, extra=""):
+    timed = ("one run under sync debug mode" if run.debug_timed else
+             f"median of {len(run.times)} {[round(t, 4) for t in run.times]}")
+    print(f"[18] {label}: {run.seconds:.4f} s ({timed}), n_iter {run.n_iter}, "
+          f"{run.syncs / max(run.n_iter, 1):.2f} synchronizing calls an "
+          f"iteration (sync debug mode), objective f64 {f:.10g}{extra}")
+
+
+def nl_fd_check(p64, x64, alpha):
+    """The MLP's implicit gradients in float64 against central differences:
+    ((name, fd, analytic, bound) for x, w1, w2, alpha)."""
+    n_rows = x64.shape[0]
+    g = torch.Generator(device=DEV).manual_seed(18)
+    z0 = torch.zeros(n_rows, p64["w1"].shape[0], dtype=torch.float64,
+                     device=DEV)
+    dec = lambda pp, z: torch.tanh(z @ pp["w1"]) @ pp["w2"]  # noqa: E731
+    L = float(hessian_2norm(lambda z: 0.5 * torch.sum(torch.square(
+        dec(p64, z) - x64)), z0, niter=50).max())
+    enc = make_implicit_nl_encoder(dec, z0=z0, lr=0.9 / L,
+                                   maxiter=NL_FD["iters"], tol=0.0,
+                                   restart=True)
+    c = torch.randn(z0.shape, generator=g, dtype=torch.float64, device=DEV)
+    xg = x64.clone().requires_grad_()
+    pg = {k: v.clone().requires_grad_() for k, v in p64.items()}
+    ag = torch.tensor(alpha, dtype=torch.float64, device=DEV,
+                      requires_grad=True)
+    torch.sum(enc(xg, pg, ag) * c).backward()
+
+    def f(xx, pp, aa):
+        return float(torch.sum(enc(xx, pp, aa) * c))
+
+    def unit(shape):
+        v = torch.randn(shape, generator=g, dtype=torch.float64, device=DEV)
+        return v / torch.linalg.vector_norm(v)
+
+    eps, out = NL_FD["eps"], []
+    v = unit(x64.shape)
+    out.append(("x", (f(x64 + eps * v, p64, alpha) - f(x64 - eps * v, p64,
+                                                        alpha)) / (2 * eps),
+                float(torch.sum(xg.grad * v)), NL_FD["x"]))
+    for leaf in ("w1", "w2"):
+        v = unit(p64[leaf].shape)
+        fd = (f(x64, {**p64, leaf: p64[leaf] + eps * v}, alpha)
+              - f(x64, {**p64, leaf: p64[leaf] - eps * v}, alpha)) / (2 * eps)
+        out.append((leaf, fd, float(torch.sum(pg[leaf].grad * v)),
+                    NL_FD["params"]))
+    out.append(("alpha", (f(x64, p64, alpha + eps) - f(x64, p64, alpha - eps))
+                / (2 * eps), float(ag.grad), NL_FD["alpha"]))
+    return out, L
+
+
+def nl_grads(enc, x, params, alpha):
+    """The gradient of sum(z^2) through an implicit encoder in x, params (a
+    tensor or a dict) and alpha, the forward and the backward timed apart,
+    with the backward's CG iterations."""
+    xg = x.clone().requires_grad_()
+    pg = ({k: v.clone().requires_grad_() for k, v in params.items()}
+          if isinstance(params, dict) else params.clone().requires_grad_())
+    ag = torch.tensor(alpha, device=DEV, requires_grad=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = enc(xg, pg, ag)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    INNER_ITERATIONS.clear()
+    t0 = time.perf_counter()
+    torch.sum(z ** 2).backward()
+    torch.cuda.synchronize()
+    return types.SimpleNamespace(
+        z=z.detach(), gx=xg.grad, ga=ag.grad,
+        gp=({k: v.grad for k, v in pg.items()} if isinstance(pg, dict)
+            else pg.grad), t_fwd=t_fwd, t_bwd=time.perf_counter() - t0,
+        cg=INNER_ITERATIONS["conjgrad_per_row"])
+
+
+def phase_nonlinear():
+    """The nonlinear solvers at BASELINE.md row 5's width: on the linear
+    decoder each held to the FISTA anchor by its JAX test's bound; on the
+    MLP timed; iterative_ridge_bfgs at K = 256
+    launching K8 once an iteration with no LU fallback (the main run of this
+    slice: counts set to 0 just before the MLP's iterative_ridge_bfgs runs
+    and read just after); K8 alone at B=2048, D=256; the implicit
+    encoder. Returns the main run's launch counts and K8's row."""
+    t0 = time.perf_counter()
+    params_np, W_np, x_mlp_np, x_lin_np = nl_problem(NL_K, seed=18)
+    params2_np, W2_np, x_mlp2_np, x_lin2_np = nl_problem(NL_K_IRB, seed=19)
+    W, x = torch.from_numpy(W_np).to(DEV), torch.from_numpy(x_lin_np).to(DEV)
+    a = NL_ALPHA_LINEAR
+    z0 = torch.zeros(NL_N, NL_K, device=DEV)
+    lr = float(1.0 / lipschitz_constant(W))
+    f_star, drift, z_star = fista_anchor(x, W, a)
+    print(f"[18] FISTA anchor, linear decoder {NL_N}x{NL_D}->{NL_K}, alpha "
+          f"{a}: objective f64 {f_star:.10g}, half its iterations "
+          f"{drift:.3e} above it")
+    check(abs(drift) <= 1e-5, "phase 18: the anchor has converged")
+    dec = lambda z: z @ W.T  # noqa: E731
+    fun, row, resid = nl_losses(dec, x)
+    lb = NL_LINEAR_BUDGET
+    runs = (
+        ("ista_nl lr 1/L", "ista", lambda: ista_nl(
+            x, z0, dec, alpha=a, lr=lr, maxiter=lb["ista"], tol=1e-9,
+            return_iters=True)),
+        ("ista_nl lr auto", "ista", lambda: ista_nl(
+            x, z0, dec, alpha=a, maxiter=lb["ista auto"], tol=1e-9,
+            return_iters=True)),
+        ("owlqn", "owlqn", lambda: owlqn(
+            fun, z0, alpha=a, max_iter=lb["owlqn"], xtol=1e-8,
+            history_size=20, return_iters=True)),
+        ("owlqn per-sample", "owlqn", lambda: owlqn(
+            row, z0, alpha=a, max_iter=lb["owlqn"], xtol=1e-8,
+            history_size=20, per_sample=True, return_iters=True)),
+        ("split_bregman_nl cg, the batch flattened", "split_bregman",
+         lambda: split_bregman_nl(
+             resid, z0, alpha=a, lambd=1.0, max_iter=lb["split_bregman"],
+             lstsq_iter=1, xtol=1e-8, return_iters=True)))
+    for label, kind, call in runs:
+        run = nl_timed(call, repeats=0)
+        f = objective64_dev(x, W, run.z, a)
+        nl_report(f"linear, {label}", run, f, f" (f* {f_star:.10g}, "
+                  f"{f / f_star:.6f} f*)")
+        check(bool(torch.isfinite(run.z).all()) and nl_bound(kind, f, f_star),
+              f"phase 18 linear {label}: within its JAX test's bound")
+    # 'exact' (a dense Jacobian) on one sample, n = K
+    x1 = x[0]
+    f1_star = objective64_dev(x[:1], W, z_star[:1], a)
+    run = nl_timed(lambda: split_bregman_nl(
+        lambda z: W @ z - x1, torch.zeros(NL_K, device=DEV), alpha=a,
+        lambd=1.0, max_iter=lb["split_bregman"], xtol=1e-8, solver="exact",
+        return_iters=True), repeats=0)
+    f = objective64_dev(x[:1], W, run.z[None], a)
+    nl_report("linear, split_bregman_nl exact, one sample", run, f,
+              f" (f* {f1_star:.10g}, {f / f1_star:.6f} f*)")
+    check(nl_bound("split_bregman", f, f1_star),
+          "phase 18 split_bregman_nl exact on one sample")
+    # the same iteration as the linear ista's, code by code
+    z_nl = ista_nl(x, z0, dec, alpha=a, lr=lr, maxiter=NL_ITERS, tol=0.0)
+    z_li = sparse_encode(x, W, a, algorithm="ista", lr=lr, maxiter=NL_ITERS,
+                         tol=0.0, use_pallas=False)
+    err = float((z_nl - z_li).abs().max())
+    print(f"[18] ista_nl against sparse_encode's plain ista, {NL_ITERS} "
+          f"iterations at lr 1/L: max |dz| {err:.3e} (atol {NL_PARITY_ATOL})")
+    check(err <= NL_PARITY_ATOL, "phase 18: ista_nl against the linear ista")
+
+    # iterative_ridge_bfgs at K = 256 on its own anchor, from the ridge
+    # start, each run one K8 launch an iteration
+    W2 = torch.from_numpy(W2_np).to(DEV)
+    x2 = torch.from_numpy(x_lin2_np).to(DEV)
+    f2_star, drift, _ = fista_anchor(x2, W2, a)
+    check(abs(drift) <= 1e-5, "phase 18: the K = 256 anchor has converged")
+    fun2, row2, _ = nl_losses(lambda z: z @ W2.T, x2)
+    z0r = linear.initialize_code(x2, W2, a, "ridge")
+    for label, f_, ps in (("", fun2, False), (" per-sample", row2, True)):
+        before = _cuda.launch_counts()
+        run = nl_timed(lambda f_=f_, ps=ps: iterative_ridge_bfgs(
+            f_, z0r, alpha=a, maxiter=lb["irb"], xtol=1e-9, per_sample=ps,
+            return_iters=True), repeats=0)
+        got = {k: v - before.get(k, 0) for k, v in _cuda.launch_counts().items()}
+        f = objective64_dev(x2, W2, run.z, a)
+        nl_report(f"linear, iterative_ridge_bfgs{label} {NL_N}x{NL_D}->"
+                  f"{NL_K_IRB}", run, f, f" (f* {f2_star:.10g}, "
+                  f"{f / f2_star:.6f} f*); chol_solve {got.get('chol_solve')}"
+                  f", LU {got.get('batch_cholesky_solve_lu', 0)}")
+        check(nl_bound("irb", f, f2_star) and got.get("chol_solve") ==
+              run.runs * run.n_iter and not got.get(
+                  "batch_cholesky_solve_lu"),
+              f"phase 18 iterative_ridge_bfgs{label}: bound, K8 once an "
+              f"iteration, no LU")
+    print(f"[18] {time.perf_counter() - t0:.1f} s into the phase: the linear "
+          f"decoder done")
+
+    # the MLP at alpha 0.05, 200 iterations at tol 0
+    p = from_numpy_tree(params_np, DEV)
+    p64 = from_numpy_tree(params_np, DEV, torch.float64)
+    xm = torch.from_numpy(x_mlp_np).to(DEV)
+    dec, dec64 = mlp_decoder(p), mlp_decoder(p64)
+    fun, row, resid = nl_losses(dec, xm)
+    am = NL_ALPHA
+    L0 = float(hessian_2norm(fun, z0, niter=50).max())
+    lr_m = 0.9 / L0
+    f0 = nl_objective64(dec64, xm, z0, am)
+    print(f"[18] MLP {NL_N}x({NL_D} -> {NL_K}), H {NL_H}, alpha {am}: the "
+          f"Hessian's norm at z = 0 up to {L0:.4f} (lr {lr_m:.5f}); the "
+          f"start's objective f64 {f0:.10g}")
+    mb = NL_MLP_BUDGET
+    runs = (
+        ("ista_nl lr 0.9/L", 3, lambda: ista_nl(
+            xm, z0, dec, alpha=am, lr=lr_m, maxiter=NL_ITERS, tol=0.0,
+            return_iters=True)),
+        ("ista_nl lr auto", 0, lambda: ista_nl(
+            xm, z0, dec, alpha=am, maxiter=NL_ITERS, tol=0.0,
+            return_iters=True)),
+        ("ista_nl lr auto, lr_refresh 4", 0, lambda: ista_nl(
+            xm, z0, dec, alpha=am, maxiter=NL_ITERS, tol=0.0, lr_refresh=4,
+            return_iters=True)),
+        ("ista_nl restart", 3, lambda: ista_nl(
+            xm, z0, dec, alpha=am, lr=lr_m, maxiter=NL_ITERS, tol=0.0,
+            restart=True, return_iters=True)),
+        ("owlqn brent", 0, lambda: owlqn(
+            fun, z0, alpha=am, max_iter=mb["owlqn"], xtol=0.0,
+            return_iters=True)),
+        ("owlqn per-sample backtrack", 0, lambda: owlqn(
+            row, z0, alpha=am, max_iter=mb["owlqn"], xtol=0.0,
+            per_sample=True, line_search="backtrack", return_iters=True)),
+        ("split_bregman_nl cg", 0, lambda: split_bregman_nl(
+            resid, z0, alpha=am, max_iter=mb["split_bregman"], lstsq_iter=2,
+            xtol=0.0, return_iters=True)))
+    fs = {}
+    for label, repeats, call in runs:
+        INNER_ITERATIONS.clear()
+        run = nl_timed(call, repeats)
+        f = nl_objective64(dec64, xm, run.z, am)
+        fs[label] = f
+        rate = (f", {run.n_iter / run.seconds:.2f} it/s"
+                if label.startswith("ista") else "")
+        nl_report(f"MLP, {label}", run, f, f"{rate}; inner iterations "
+                  f"{json.dumps(dict(INNER_ITERATIONS))} over its {run.runs} "
+                  f"runs")
+        check(bool(torch.isfinite(run.z).all()) and f < f0,
+              f"phase 18 MLP {label}: finite and below the start")
+    rel = (abs(fs["ista_nl lr auto, lr_refresh 4"] - fs["ista_nl lr auto"])
+           / abs(fs["ista_nl lr auto"]))
+    print(f"[18] lr_refresh 4 against 1: {rel:.3e} relative (bound "
+          f"{NL_REFRESH_RTOL})")
+    check(rel <= NL_REFRESH_RTOL, "phase 18: lr_refresh 4 near 1")
+
+    # iterative_ridge_bfgs through the MLP at K = 256: the main run
+    p2 = from_numpy_tree(params2_np, DEV)
+    p2_64 = from_numpy_tree(params2_np, DEV, torch.float64)
+    xm2 = torch.from_numpy(x_mlp2_np).to(DEV)
+    fun2, row2, _ = nl_losses(mlp_decoder(p2), xm2)
+    z0m = 0.1 * torch.randn(NL_N, NL_K_IRB, device=DEV,
+                            generator=torch.Generator(device=DEV).manual_seed(
+                                19))
+    f0m = nl_objective64(mlp_decoder(p2_64), xm2, z0m, am)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    irb_runs = []
+    for label, f_, ps in (("", fun2, False), (" per-sample", row2, True)):
+        before = _cuda.launch_counts()
+        run = nl_timed(lambda f_=f_, ps=ps: iterative_ridge_bfgs(
+            f_, z0m, alpha=am, maxiter=mb["irb"], xtol=0.0, per_sample=ps,
+            return_iters=True), repeats=0)
+        got = {k: v - before.get(k, 0) for k, v in _cuda.launch_counts().items()}
+        irb_runs.append((label, run, got))
+    counts = _cuda.launch_counts()
+    for label, run, got in irb_runs:
+        f = nl_objective64(mlp_decoder(p2_64), xm2, run.z, am)
+        nl_report(f"MLP, iterative_ridge_bfgs{label} K={NL_K_IRB}", run, f,
+                  f" (start {f0m:.10g}); chol_solve {got.get('chol_solve')} "
+                  f"for {run.runs} runs, LU {got.get('batch_cholesky_solve_lu', 0)}")
+        check(bool(torch.isfinite(run.z).all()) and f < f0m,
+              f"phase 18 MLP iterative_ridge_bfgs{label}: finite, below start")
+        check(got.get("chol_solve") == run.runs * run.n_iter
+              and not got.get("batch_cholesky_solve_lu"),
+              f"phase 18 MLP iterative_ridge_bfgs{label}: K8 once an "
+              f"iteration, no LU")
+    print(f"[18] main run launch counts: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+
+    # where an iteration's time goes: short runs of each solver on the MLP
+    # under torch.profiler (the host's operations traced too), their
+    # kernel time by name against the wall time of the same run untraced
+    short = (
+        ("ista_nl lr 0.9/L", lambda: ista_nl(
+            xm, z0, dec, alpha=am, lr=lr_m, maxiter=10, tol=0.0)),
+        ("ista_nl lr auto", lambda: ista_nl(
+            xm, z0, dec, alpha=am, maxiter=3, tol=0.0)),
+        ("owlqn brent", lambda: owlqn(fun, z0, alpha=am, max_iter=5,
+                                      xtol=0.0)),
+        ("split_bregman_nl cg", lambda: split_bregman_nl(
+            resid, z0, alpha=am, max_iter=1, inner_iter=1, lstsq_iter=1,
+            xtol=0.0)),
+        ("iterative_ridge_bfgs K=256", lambda: iterative_ridge_bfgs(
+            fun2, z0m, alpha=am, maxiter=5, xtol=0.0)))
+    for label, call in short:
+        call()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        _, by_name = profiled(call)
+        k8 = sum(v for k, v in by_name.items() if "chol_solve" in k)
+        print(f"[18] split of a short MLP run, {label}: wall {wall:.4f} s; "
+              f"{kernel_split(by_name, wall)}; K8 {k8:.3f} ms")
+    print(f"[18] {time.perf_counter() - t0:.1f} s into the phase: the MLP "
+          f"done")
+
+    # K8 alone at the shape the main run gives it, held to its plain
+    # version (phase 12's rule) and timed beside it, the library and its
+    # bound
+    b, A = spd_systems(NL_N, NL_K_IRB, seed=18)
+    got = B.batch_cholesky_solve_lanes(b, A)
+    torch.cuda.synchronize()
+    want = B.batch_cholesky_solve_lanes_plain(b, A)
+    worst = rel_excess(got, want, 1e-4)
+    err = float((got - want).abs().max())
+    print(f"[18] chol_solve B={NL_N} D={NL_K_IRB}: max|err| {err:.3e}, "
+          f"max(|err| - 1e-4 |plain|) {worst:.3e} (atol 1e-5)")
+    check(worst <= 1e-5 and bool(torch.isfinite(got).all()),
+          f"chol_solve B={NL_N} D={NL_K_IRB}")
+    del got, want
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.cholesky_solve(b[:, :, None], L)
+
+    t_bytes, t_ops = chol_solve_bound_ms(NL_N, NL_K_IRB)
+    k8_row = {"name": "chol_solve", "shape": f"B={NL_N}, D={NL_K_IRB}",
+              "route": "cuda", "source": CHOL_SOURCE,
+              "replaces": CHOL_SOLVE_REPLACES,
+              "launches": counts.get("chol_solve", 0), "max_abs_err": err,
+              "ms": cuda_ms(lambda: B.batch_cholesky_solve_lanes(b, A)),
+              "plain_ms": cuda_ms(
+                  lambda: B.batch_cholesky_solve_lanes_plain(b, A), reps=1,
+                  warm=0),
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "library_ms": 1e3 * sum(kernel_seconds(library)
+                                      for _ in range(3)) / 3}
+    print(f"[18] {json.dumps(k8_row)} (ms: mean of 20 launches after 3; "
+          f"plain_ms: one call; library_ms: torch.linalg.cholesky_ex + "
+          f"torch.cholesky_solve, the card time of its operations by "
+          f"torch.profiler, mean of 3 calls, timed only)")
+    del b, A
+
+    # the implicit encoder: the linear decoder at full width, ridge 1.0,
+    # against the linear implicit encoder on the same forward iteration
+    solve = dict(lr=lr, maxiter=NL_ITERS, tol=0.0, ridge=NL_IMPLICIT["ridge"],
+                 cg_iters=IMPLICIT_CG, support_eps=SUPPORT_EPS)
+    nl = nl_grads(make_implicit_nl_encoder(lambda Wp, z: z @ Wp.T, z0=z0,
+                                           **solve), x, W, a)
+    li = nl_grads(make_implicit_encoder(use_pallas=False, **solve), x, W, a)
+    parting, agree = support_parts(nl.z, li.z)
+    r_agree = rel_norm(nl.gx[agree], li.gx[agree])
+    rW, ra = rel_norm(nl.gp, li.gp), rel_norm(nl.ga, li.ga)
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in (nl.gx, nl.gp, nl.ga))
+    print(f"[18] implicit, linear decoder {NL_N}x{NL_D}->{NL_K}, ridge "
+          f"{NL_IMPLICIT['ridge']}: forward {nl.t_fwd:.4f} s, backward "
+          f"{nl.t_bwd:.4f} s ({nl.cg} CG iterations; the linear encoder "
+          f"{li.t_fwd:.4f} + {li.t_bwd:.4f} s, {li.cg}); supports part on "
+          f"{parting} entries ({int((~agree).sum())} samples); x grad on the "
+          f"agreeing samples {r_agree:.3e} (bound "
+          f"{NL_IMPLICIT['agreeing_x']:g}), W grad {rW:.3e}, alpha grad "
+          f"{ra:.3e} (bounds {NL_IMPLICIT['W']:g}, {NL_IMPLICIT['alpha']:g})")
+    check(finite and parting <= NL_IMPLICIT["parting_share"] * nl.z.numel()
+          and r_agree <= NL_IMPLICIT["agreeing_x"] and rW <= NL_IMPLICIT["W"]
+          and ra <= NL_IMPLICIT["alpha"],
+          "phase 18: the nonlinear implicit encoder against the linear one")
+    del nl, li
+
+    # the MLP in float64 on 64 rows against central differences
+    fd, L_fd = nl_fd_check(p64, xm[:NL_FD["rows"]].double(), am)
+    for name, f_d, an, bound in fd:
+        print(f"[18] implicit, MLP float64 {NL_FD['rows']} rows (lr 0.9 / "
+              f"{L_fd:.4f}, {NL_FD['iters']} restarted iterations): "
+              f"d/d{name} central difference {f_d:.10g}, implicit "
+              f"{an:.10g}, relative {abs(f_d - an) / max(1.0, abs(f_d)):.3e}"
+              f" (bound {bound:g})")
+        check(abs(f_d - an) <= bound * max(1.0, abs(f_d)),
+              f"phase 18: the MLP's implicit d/d{name}")
+
+    # the MLP in float32 at full width: time and CG iterations
+    run = nl_grads(make_implicit_nl_encoder(
+        lambda pp, z: torch.tanh(z @ pp["w1"]) @ pp["w2"], z0=z0, lr=lr_m,
+        maxiter=NL_ITERS, tol=0.0, cg_iters=IMPLICIT_CG), xm, p, am)
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in (run.gx, run.ga, *run.gp.values()))
+    print(f"[18] implicit, MLP float32 {NL_N}x({NL_D} -> {NL_K}): forward "
+          f"{run.t_fwd:.4f} s ({NL_ITERS} iterations), backward "
+          f"{run.t_bwd:.4f} s ({run.cg} CG iterations), support a sample "
+          f"{float((run.z != 0).sum(dim=1).float().mean()):.2f}, gradients "
+          f"finite {finite}")
+    check(finite, "phase 18: the MLP's implicit gradients finite")
+    return counts, k8_row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3243,7 +3819,7 @@ def main():
     counts = phase_headline(x_np, W_np)
     for row in rows:
         row["launches"] = counts[row["name"]]
-    phase_single_step(x_np, W_np)
+    rows.append(phase_single_step(x_np, W_np))
     phase_cli()
     cd_rows = phase_cd_kernels()
     X_train = training_data()
@@ -3300,6 +3876,12 @@ def main():
     rows.extend({**row, "launches": rich[name]}
                 for name, row in conv_rich_rows.items())
     print(f"[17] phase time {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    counts, chol_nl_row = phase_nonlinear()
+    # K8's launches on this slice's path: iterative_ridge_bfgs through the
+    # MLP at K = 256
+    rows.append({**chol_nl_row, "launches": counts.get("chol_solve", 0)})
+    print(f"[18] phase time {time.perf_counter() - t18:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -136,6 +136,21 @@ def from_numpy_params(params, device, padding=None):
     return out
 
 
+def from_numpy_tree(tree, device, dtype=torch.float32):
+    """Turn the JAX package's parameter tree of a nonlinear decoder (dicts,
+    lists and tuples of numpy arrays, nested, as ``decoder(params, z)``
+    takes them) into the same structure of contiguous tensors of ``dtype``
+    (float32 by default) on ``device``. A read-only array (one of JAX's,
+    say) is copied, never shared."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: from_numpy_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_numpy_tree(v, device, dtype) for v in tree)
+    a = np.require(np.asarray(tree), requirements=["C", "W"])
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
 def _conv_params(params, device, padding):
     """:func:`from_numpy_params` for a conv dictionary."""
     unknown = set(params) - {"weight", "weight0", "x", "z0", "alpha",

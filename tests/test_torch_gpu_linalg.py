@@ -1,6 +1,7 @@
 """lasso_tpu_torch on a CUDA card: the Cholesky solve kernel K8 against its
-plain version, its whole-batch LU fallback, and OMP 'chol-full' on the card
-against the same solve on the CPU.
+plain version, its whole-batch LU fallback, and OMP 'chol-full' and the
+nonlinear iterative-ridge BFGS on the card against the same solves on the
+CPU.
 
 Every test here is marked ``gpu`` and skips where there is no card. This
 file imports neither JAX nor the JAX package; on a machine that has only
@@ -15,6 +16,7 @@ import torch
 
 from lasso_tpu_torch.linalg import batch_cholesky_solve
 from lasso_tpu_torch.linear.solvers import orthogonal_matching_pursuit
+from lasso_tpu_torch.nonlinear import iterative_ridge_bfgs
 from lasso_tpu_torch.ops import _cuda
 from lasso_tpu_torch.ops import batched_cholesky as T_B
 
@@ -127,3 +129,46 @@ def test_omp_chol_full_on_card_matches_cpu():
     assert (after.get("batch_cholesky_solve_lu", 0)
             == before.get("batch_cholesky_solve_lu", 0))
     assert_same_fit(x, W, n(zp), n(zc))
+
+
+def test_iterative_ridge_bfgs_on_card_matches_cpu():
+    """iterative_ridge_bfgs through a tanh MLP decoder at 256 rows, K = 256
+    (K8's widest systems), 4 iterations with the line search: one K8
+    launch an iteration and no LU fallback on the card, and the codes
+    within 1e-2 of their largest entry of the same solve on the CPU (the
+    library's Cholesky there), objectives within 1e-4 relative. The
+    method is sensitive to rounding (the ridge diagonal alpha / |x| of
+    small codes): the CPU's float32 run parts from its float64 run by
+    9.8e-4 at these settings."""
+    _need_card()
+    rng = np.random.default_rng(18)
+    B, K, H, D = 256, 256, 128, 64
+    w1 = rng.standard_normal((K, H)) / np.sqrt(K)
+    w2 = rng.standard_normal((H, D)) / np.sqrt(H)
+    codes = rng.standard_normal((B, K)) * (rng.random((B, K)) < 0.05)
+    x = np.tanh(codes @ w1) @ w2 + 0.01 * rng.standard_normal((B, D))
+    z0 = 0.1 * rng.standard_normal((B, K))
+    runs = []
+    for device in ("cuda", "cpu"):
+        xt, z0t, w1t, w2t = (torch.tensor(a, dtype=torch.float32,
+                                          device=device)
+                             for a in (x, z0, w1, w2))
+
+        def loss(z):
+            return 0.5 * torch.sum(torch.square(
+                torch.tanh(z @ w1t) @ w2t - xt))
+
+        before = _cuda.launch_counts()
+        z, k = iterative_ridge_bfgs(loss, z0t, alpha=0.05, maxiter=4,
+                                    return_iters=True)
+        after = _cuda.launch_counts()
+        runs.append((n(z), k, float(loss(z)) + 0.05 * float(z.abs().sum()),
+                     {name: after.get(name, 0) - before.get(name, 0)
+                      for name in ("chol_solve", "batch_cholesky_solve_lu")}))
+    (zc, kc, fc, lc), (zp, kp, fp, lp) = runs
+    assert kc == kp == 4
+    assert lc == {"chol_solve": 4, "batch_cholesky_solve_lu": 0}
+    assert lp == {"chol_solve": 0, "batch_cholesky_solve_lu": 0}
+    assert np.isfinite(zc).all()
+    assert np.abs(zc - zp).max() <= 1e-2 * np.abs(zp).max()
+    assert abs(fc - fp) <= 1e-4 * abs(fp)
