@@ -288,6 +288,23 @@ before the last line is printed.
    with the linear decoder against ``make_implicit_encoder`` (ridge 1.0),
    with the MLP in float64 on 64 rows against central differences, and
    with the MLP in f32 at full width, timed.
+19. The parallel layer (``lasso_tpu_torch.parallel``) on
+   ``torch.distributed``. One NCCL rank on an in-memory store:
+   ``data_parallel_encode`` at the headline ('mixed', 200 iterations, tol
+   1e-5, so that the all-reduced stop runs) bit for bit with
+   ``sparse_encode``, with the same count and K1/K2 launches;
+   ``make_train_step``, 5 EM steps at the training width, and
+   ``data_parallel_encode_conv2d`` and ``make_conv_train_step``, 5 EM
+   steps, at the conv headline, each held bit for bit to its
+   single-process counterpart (the conv steps with cuDNN's deterministic
+   algorithms on both sides: its default weight gradient does not repeat
+   its last bits). One conv EM step of each side under torch.profiler:
+   its kernel time by name and its host's costliest operations. Then two
+   processes sharing the card over gloo (``chip_smoke.py
+   --parallel-rank``), 8192 rows each: the codes within 1e-5 of the
+   single process and the same count, at 16384 and at 16383 rows. Each
+   call's seconds (the median of 5 calls, or of the 5 EM steps; the
+   gloo ranks' of 3) beside the single process's.
 
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -3775,6 +3792,327 @@ def phase_nonlinear():
     return counts, k8_row
 
 
+# phase 19: the parallel layer (lasso_tpu_torch.parallel) on
+# torch.distributed. One NCCL rank on an in-memory store (no network): the
+# headline encode bit for bit with sparse_encode and with the same K1/K2
+# launches, 3 EM steps at the training width and the conv encode and 3
+# conv EM steps at the conv headline, each held to its single-process
+# counterpart. Then two processes sharing the card over gloo (NCCL refuses
+# two ranks on one device), 8192 rows each: codes within the JAX test's
+# 1e-5 and the same count, also ragged (16383 rows). Seconds are medians
+# of PAR_REPS calls a side (PAR_STEPS EM steps; the gloo ranks' of
+# PAR_GLOO_REPS).
+PAR_KW = dict(algorithm="ista", maxiter=200, tol=1e-5,
+              kernel_precision="mixed", mixed_tail_iters=37,
+              return_iters=True)
+PAR_ATOL = 1e-5                  # tests/test_parallel.py's sharded encodes
+PAR_RAGGED = 16383
+PAR_TRAIN = dict(lambd=1e-2, maxiter=100, tol=1e-5)
+PAR_CONV = dict(maxiter=CONV_ITERS, tol=1e-5)
+PAR_STEPS = 5
+PAR_REPS = 5
+PAR_GLOO_REPS = 3
+PAR_RANK_TIMEOUT = 240
+
+
+def timed(fn):
+    """(result, seconds) of one call between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def par_call(fn, total):
+    """One call of the parallel layer with the launch counts set to 0 just
+    before it and read just after, added to ``total``: (result, seconds,
+    the call's own counts)."""
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    out, seconds = timed(fn)
+    counts = _cuda.launch_counts()
+    total.update(counts)
+    return out, seconds, counts
+
+
+def par_print(label, seconds, single):
+    """Medians of a parallel call's and its single-process counterpart's
+    seconds, each call's beside them."""
+    med, med_s = float(np.median(seconds)), float(np.median(single))
+    print(f"[19] {label}: median {med:.4f} s, single process {med_s:.4f} s "
+          f"({med / med_s:.3f}x); calls "
+          f"{json.dumps([round(t, 4) for t in seconds])}, single "
+          f"{json.dumps([round(t, 4) for t in single])}")
+
+
+def host_split(label, fn):
+    """One call of ``fn`` under torch.profiler with the host's operations
+    traced: print its kernel time by name (:func:`profiled`'s rule), the
+    NCCL kernels' share, and the host's costliest operations by self time
+    with their call counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev, host = collections.Counter(), {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if e.self_device_time_total > 0:
+                dev[e.key[:40]] += e.self_device_time_total / 1e3
+        elif e.self_cpu_time_total > 0:
+            host[e.key[:40]] = (round(e.self_cpu_time_total / 1e3, 3),
+                                e.count)
+    nccl = sum(v for k, v in dev.items() if "nccl" in k.lower())
+    top = dict(sorted(host.items(), key=lambda kv: -kv[1][0])[:8])
+    print(f"[19] {label} under torch.profiler: wall {wall:.4f} s, "
+          f"{kernel_split(dev, wall)}, NCCL kernels {nccl:.3f} ms; host "
+          f"self ms and calls {json.dumps(top)}")
+
+
+def parallel_encode_rank(rank, world, directory):
+    """One of the two gloo ranks of phase 19 (``chip_smoke.py
+    --parallel-rank RANK WORLD DIR``): the headline encode and the ragged
+    one through data_parallel_encode, each after a short warm-up call and
+    timed PAR_GLOO_REPS times; rank 0 saves the last codes and count and
+    every call's seconds to DIR."""
+    import torch.distributed as dist
+
+    from lasso_tpu_torch import parallel
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(directory, "store"), world)
+    parallel.initialize(num_processes=world, process_id=rank,
+                        backend="gloo", store=store)
+    mesh = parallel.make_mesh(devices="cuda")
+    x_np, W_np = headline_problem()
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    lr = float(np.load(os.path.join(directory, "lr.npy")))
+    out = {}
+    for label, rows in (("headline", N), ("ragged", PAR_RAGGED)):
+        parallel.data_parallel_encode(mesh, x[:rows], W, alpha=ALPHA, lr=lr,
+                                      **{**PAR_KW, "maxiter": 8})
+        seconds = []
+        for _ in range(PAR_GLOO_REPS):
+            (z, k), s = timed(lambda: parallel.data_parallel_encode(
+                mesh, x[:rows], W, alpha=ALPHA, lr=lr, **PAR_KW))
+            seconds.append(s)
+        out[label] = (z.cpu(), k, seconds)
+    if rank == 0:
+        torch.save(out, os.path.join(directory, "rank0.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def two_gloo_ranks(lr):
+    """Run phase 19's two gloo ranks and return rank 0's results; a rank
+    that fails or outlives PAR_RANK_TIMEOUT kills both and fails."""
+    with tempfile.TemporaryDirectory() as directory:
+        np.save(os.path.join(directory, "lr.npy"), np.float32(lr))
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), "2", directory], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=PAR_RANK_TIMEOUT)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print(logs[r], file=sys.stderr)
+            check(p.returncode == 0, f"phase 19 gloo rank {r} exited "
+                  f"{p.returncode}")
+        return torch.load(os.path.join(directory, "rank0.pt"))
+
+
+def phase_parallel(x_np, W_np, X_train):
+    """Phase 19; returns the launches of its one-rank parallel calls by
+    kernel (the single-process references run outside their counts)."""
+    import torch.distributed as dist
+
+    from lasso_tpu_torch import parallel
+    from lasso_tpu_torch.conv2d.dict_learning import conv_lasso_loss
+    from lasso_tpu_torch.conv2d.ops import _code_shape
+
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    lr = float(1.0 / lipschitz_constant(W))
+    kw = dict(alpha=ALPHA, lr=lr, **PAR_KW)
+    card = card_line()
+
+    # the single-process references, warm
+    sparse_encode(x, W, **{**kw, "maxiter": 8})
+    _cuda.reset_launch_counts()
+    z_s, k_s = sparse_encode(x, W, **kw)
+    single_counts = _cuda.launch_counts()
+    z_r, k_r = sparse_encode(x[:PAR_RAGGED], W, **kw)
+    s_single, s_ragged = [], []
+    for _ in range(PAR_REPS):
+        s_single.append(timed(lambda: sparse_encode(x, W, **kw))[1])
+        s_ragged.append(timed(lambda: sparse_encode(x[:PAR_RAGGED], W,
+                                                    **kw))[1])
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh(devices="cuda")
+        check(tuple(mesh.shape) == (1, 1), "phase 19: a (1, 1) mesh")
+        # the communicator is made at the first collective: outside the
+        # timed calls
+        parallel.data_parallel_encode(mesh, x, W, **{**kw, "maxiter": 8})
+        total = collections.Counter()
+        names = [f"{k}_{kp}" for k in ("fista_resid", "fista_grad_prox")
+                 for kp in ("bf16", "f32")]
+        s_par = []
+        for i in range(PAR_REPS):
+            (z_p, k_p), s, counts = par_call(
+                lambda: parallel.data_parallel_encode(mesh, x, W, **kw),
+                total)
+            s_par.append(s)
+            if i == 0:
+                print(f"[19] one NCCL rank, {card}: n_iter {k_p} (single "
+                      f"process {k_s}), launches "
+                      f"{json.dumps({n: counts.get(n, 0) for n in names})}")
+            check(torch.equal(z_p, z_s) and k_p == k_s,
+                  "phase 19: one rank bit for bit with sparse_encode")
+            check(all(counts.get(n, 0) == single_counts.get(n, 0) > 0
+                      for n in names),
+                  "phase 19: the same K1/K2 launches as sparse_encode")
+        par_print("data_parallel_encode at the headline, one rank", s_par,
+                  s_single)
+
+        # EM steps at the training width, against sparse_encode +
+        # lasso_loss + update_dict_ridge in one process
+        X = torch.from_numpy(X_train).to(DEV)
+        g = torch.Generator(device=DEV).manual_seed(19)
+        W0 = torch.randn(TRAIN_D, TRAIN_K, generator=g, device=DEV)
+        W0 = W0 / torch.linalg.vector_norm(W0, dim=0, keepdim=True)
+        step, _ = parallel.make_train_step(mesh, alpha=ALPHA, **PAR_TRAIN)
+        solver = {k: v for k, v in PAR_TRAIN.items() if k != "lambd"}
+
+        def single_step(w):
+            Z = sparse_encode(X, w, ALPHA, **solver)
+            return (DL.update_dict_ridge(X, Z, lambd=PAR_TRAIN["lambd"]),
+                    DL.lasso_loss(X, Z, w, ALPHA))
+
+        # a step of each outside the timed ones: the first call of a
+        # solver, a Cholesky or a convolution pays for its library's set-up
+        step(X, W0)
+        single_step(W0)
+        w_p = w_s = W0
+        t_p, t_s = [], []
+        for i in range(PAR_STEPS):
+            (w_p, loss_p), s, _ = par_call(lambda: step(X, w_p), total)
+            t_p.append(s)
+            (w_s, loss_s), s = timed(lambda: single_step(w_s))
+            t_s.append(s)
+            print(f"[19] train step {i}: loss {float(loss_p):.8g} (single "
+                  f"{float(loss_s):.8g}), W bit for bit "
+                  f"{torch.equal(w_p, w_s)}")
+            check(torch.equal(w_p, w_s) and torch.equal(loss_p, loss_s),
+                  "phase 19: make_train_step bit for bit with the single "
+                  "step")
+        par_print(f"make_train_step, an EM step at "
+                  f"{TRAIN_N}x{TRAIN_D}->{TRAIN_K}", t_p, t_s)
+
+        # the conv encode and conv EM steps at the conv headline
+        xs_np, Wc_np = conv_problem("headline", 1)
+        xc = torch.from_numpy(xs_np[0]).to(DEV)
+        Wc = torch.from_numpy(Wc_np).to(DEV)
+        lr_c = float(1.0 / lip_bound_conv2d(Wc, 0))
+        zc0 = xc.new_zeros(_code_shape(xc.shape, Wc.shape))
+        ista_conv2d(xc, zc0, Wc, CONV_ALPHA, lr=lr_c, **PAR_CONV)
+        parallel.data_parallel_encode_conv2d(mesh, xc, Wc, alpha=CONV_ALPHA,
+                                             lr=lr_c, **PAR_CONV)
+        s_cs, s_cp = [], []
+        for _ in range(PAR_REPS):
+            zc_s, s = timed(lambda: ista_conv2d(xc, zc0, Wc, CONV_ALPHA,
+                                                lr=lr_c, **PAR_CONV))
+            s_cs.append(s)
+            zc_p, s, _ = par_call(
+                lambda: parallel.data_parallel_encode_conv2d(
+                    mesh, xc, Wc, alpha=CONV_ALPHA, lr=lr_c, **PAR_CONV),
+                total)
+            s_cp.append(s)
+            check(torch.equal(zc_p, zc_s),
+                  "phase 19: the conv encode bit for bit with ista_conv2d")
+        par_print("data_parallel_encode_conv2d at the conv headline", s_cp,
+                  s_cs)
+        cstep, _ = parallel.make_conv_train_step(
+            mesh, alpha=CONV_ALPHA, lr=lr_c, **PAR_CONV)
+
+        def conv_single(w, gen):
+            Z = ista_conv2d(xc, xc.new_zeros(_code_shape(xc.shape, w.shape)),
+                            w, CONV_ALPHA, lr=lr_c, **PAR_CONV)
+            loss = conv_lasso_loss(xc, Z, w, CONV_ALPHA)
+            return update_kernel_constrained(xc, Z, w, gen)[0], loss
+
+        # cuDNN's default weight gradient (the M-step's adjoint) does not
+        # repeat its last bits from call to call; with its deterministic
+        # algorithms on both sides the step is held bit for bit
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            cstep(xc, Wc, torch.Generator(device=DEV).manual_seed(0))
+            conv_single(Wc, torch.Generator(device=DEV).manual_seed(0))
+            w_p = w_s = Wc
+            t_p, t_s = [], []
+            for i in range(PAR_STEPS):
+                (w_p, loss_p), s, _ = par_call(lambda: cstep(
+                    xc, w_p, torch.Generator(device=DEV).manual_seed(i)),
+                    total)
+                t_p.append(s)
+                (w_s, loss_s), s = timed(lambda: conv_single(
+                    w_s, torch.Generator(device=DEV).manual_seed(i)))
+                t_s.append(s)
+                print(f"[19] conv train step {i}: loss {float(loss_p):.8g} "
+                      f"(single {float(loss_s):.8g}), W bit for bit "
+                      f"{torch.equal(w_p, w_s)}")
+                check(torch.equal(w_p, w_s) and torch.equal(loss_p, loss_s),
+                      "phase 19: make_conv_train_step bit for bit with the "
+                      "single step")
+            par_print(f"make_conv_train_step, an EM step (deterministic "
+                      f"cuDNN)", t_p, t_s)
+            # where a conv step's time goes on each side (outside the
+            # launch counts)
+            for label, call in (
+                    ("make_conv_train_step", lambda: cstep(
+                        xc, w_p, torch.Generator(device=DEV).manual_seed(9))),
+                    ("the single-process conv step", lambda: conv_single(
+                        w_s, torch.Generator(device=DEV).manual_seed(9)))):
+                host_split(label, call)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+    finally:
+        dist.destroy_process_group()
+
+    got = two_gloo_ranks(lr)
+    for label, z_ref, k_ref, single in (
+            ("headline", z_s, k_s, s_single),
+            ("ragged", z_r, k_r, s_ragged)):
+        z, k, s = got[label]
+        err = float(torch.max(torch.abs(z.to(DEV) - z_ref)))
+        print(f"[19] two gloo ranks, {label} ({z.shape[0]} rows): n_iter "
+              f"{k} (single process {k_ref}), max |z - z_single| {err:.3e}")
+        par_print(f"two gloo ranks sharing the card, {label}", s, single)
+        check(tuple(z.shape) == tuple(z_ref.shape) and err <= PAR_ATOL
+              and k == k_ref,
+              f"phase 19: two gloo ranks, {label}, within {PAR_ATOL} and "
+              f"the same count")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3882,6 +4220,17 @@ def main():
     # MLP at K = 256
     rows.append({**chol_nl_row, "launches": counts.get("chol_solve", 0)})
     print(f"[18] phase time {time.perf_counter() - t18:.1f} s")
+    t19 = time.perf_counter()
+    counts = phase_parallel(*headline_problem(), X_train)
+    # phase 19's launches go to the rows of the same kernel: K1/K2 at the
+    # headline and the training width, K9a/K9b at the conv headline
+    launched = {row["name"]: counts.get(row["name"], 0) for row in rows
+                if "shape" not in row and counts.get(row["name"], 0)}
+    print(f"[19] launches: {json.dumps(launched)}")
+    for row in rows:
+        if row["name"] in launched and "shape" not in row:
+            row["launches"] += launched[row["name"]]
+    print(f"[19] phase time {time.perf_counter() - t19:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3892,4 +4241,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_encode_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4]))
     sys.exit(main())

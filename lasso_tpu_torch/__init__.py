@@ -10,7 +10,7 @@ bench take ``--device`` (default ``cuda``).
 """
 
 from lasso_tpu_torch import (config, conv2d, linalg, linear, nonlinear, ops,
-                             utils)
+                             parallel, utils)
 from lasso_tpu_torch.linear import (dict_evaluate, dict_learning,
                                     initialize_code, lasso_loss, sparse_encode,
                                     update_dict, update_dict_block,
@@ -18,7 +18,8 @@ from lasso_tpu_torch.linear import (dict_evaluate, dict_learning,
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "conv2d", "linalg", "linear", "nonlinear", "ops", "utils",
+__all__ = ["config", "conv2d", "linalg", "linear", "nonlinear", "ops",
+           "parallel", "utils",
            "sparse_encode",
            "initialize_code", "dict_learning", "dict_evaluate", "lasso_loss",
            "update_dict", "update_dict_block", "update_dict_ridge"]

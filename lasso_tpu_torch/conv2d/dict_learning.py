@@ -29,8 +29,8 @@ from lasso_tpu_torch.conv2d.ista import ista_conv2d
 from lasso_tpu_torch.conv2d.ops import (_code_shape, _conv2d_weight,
                                         conv_transpose2d)
 from lasso_tpu_torch.linalg.conjgrad import conjgrad
-from lasso_tpu_torch.linear.dict_learning import (_generator, _no_axis_name,
-                                                  _randn)
+from lasso_tpu_torch.linear.dict_learning import _generator, _randn
+from lasso_tpu_torch.ops.common import check_axis_name, psum
 
 
 def conv_lasso_loss(X, Z, weight, alpha=1.0, stride=1, padding=0):
@@ -53,14 +53,20 @@ def update_kernel(X, Z, weight, stride=1, padding=0, lambd=0.0,
     0.5 lambd ||V||^2``, warm-started from ``weight``: CG on the normal
     equations in filter space for the correction from ``weight``, with no
     relative exit (the EM loop needs a descent step, and CG's default
-    relative exit stops near 5% of the residual)."""
-    _no_axis_name(axis_name)
+    relative exit stops near 5% of the residual).
+
+    ``axis_name``: a ``torch.distributed.ProcessGroup`` whose ranks each
+    hold images of X and Z; the adjoint's outputs (filter-sized) are then
+    all-reduced over it, one collective a CG iteration, and the CG state
+    stays the same on every rank."""
+    check_axis_name(axis_name)
 
     def dec(V):
         return conv_transpose2d(Z, V, stride=stride, padding=padding)
 
     def adj(R):
-        return _conv2d_weight(R, Z, weight.shape, stride, padding)
+        return psum(_conv2d_weight(R, Z, weight.shape, stride, padding),
+                    axis_name)
 
     def Adot(V):
         AV = adj(dec(V))
@@ -81,20 +87,23 @@ def update_kernel_constrained(X, Z, weight, generator=None, stride=1,
     each filter projected onto the unit sphere, and each degenerate filter
     (norm below ``eps``) replaced by a random unit filter drawn from
     ``generator`` (default: seed 0 on the filters' device), its code
-    channel zeroed. Returns ``(weight, Z)``."""
-    _no_axis_name(axis_name)
+    channel zeroed. Returns ``(weight, Z)``. ``axis_name`` goes to
+    :func:`update_kernel`; ``generator`` must then be seeded alike on
+    every rank."""
+    check_axis_name(axis_name)
     generator = _generator(generator, weight.device)
     rand = _randn(tuple(weight.shape), generator, weight)
     return _update_kernel_constrained(X, Z, weight, rand, stride, padding,
-                                      lambd, cg_iters, eps)
+                                      lambd, cg_iters, eps, axis_name)
 
 
 def _update_kernel_constrained(X, Z, weight, rand, stride=1, padding=0,
-                               lambd=1e-6, cg_iters=30, eps=1e-10):
+                               lambd=1e-6, cg_iters=30, eps=1e-10,
+                               axis_name=None):
     """:func:`update_kernel_constrained` on a given draw ``rand`` of the
     filters' shape."""
     V = update_kernel(X, Z, weight, stride=stride, padding=padding,
-                      lambd=lambd, cg_iters=cg_iters)
+                      lambd=lambd, cg_iters=cg_iters, axis_name=axis_name)
     norms = torch.sqrt(torch.sum(torch.square(V), dim=(1, 2, 3)))  # [C_z]
     degenerate = norms < eps
     scale = torch.where(degenerate, 1.0, norms)[:, None, None, None]

@@ -20,8 +20,9 @@ import torch
 
 from lasso_tpu_torch.conv2d.lip_const import lip_bound_conv2d, lip_constant
 from lasso_tpu_torch.conv2d.ops import _pair, conv2d, conv_transpose2d
-from lasso_tpu_torch.ops.common import (per_feature_alpha_row,
-                                        per_sample_alpha_column,
+from lasso_tpu_torch.ops.common import (check_axis_name, global_tol,
+                                        per_feature_alpha_row,
+                                        per_sample_alpha_column, psum,
                                         resolve_pallas)
 from lasso_tpu_torch.ops.fused_conv import (fused_conv_fista_multistep,
                                             max_fuse_steps_conv,
@@ -50,7 +51,8 @@ def _fuse_steps(fuse_steps, weight, maxiter):
 
 
 def _ista_conv2d_fused(x, z0, weight, alpha, padding, maxiter, lr,
-                       tol_total, phases, fuse_steps, nonneg, restart):
+                       tol_total, phases, fuse_steps, nonneg, restart,
+                       axis_name=None):
     """The fused route of :func:`ista_conv2d` (stride 1): each phase (one
     for 'f32'/'bf16', a bf16 bulk and an f32 tail for 'mixed') runs full
     ``S``-iteration blocks, then one remainder block of its own size.
@@ -89,7 +91,7 @@ def _ista_conv2d_fused(x, z0, weight, alpha, padding, maxiter, lr,
                     nonneg=nonneg)
                 t, mom = t_c, m_c
             k += steps
-            done = float(delta) <= tol_total
+            done = float(psum(delta, axis_name)) <= tol_total
 
     start = 0
     for idx, (mode, limit) in enumerate(phases):
@@ -142,15 +144,15 @@ def ista_conv2d(x, z0, weight, alpha=1.0, stride=1, padding=0, fast=True,
       :func:`lasso_tpu_torch.ops.fused_conv.max_fuse_steps_conv`), or 8
       with a remainder block.
     * ``verbose`` prints the lasso loss per iteration.
-    * ``axis_name`` belongs to the parallel layer, which is not ported.
+    * ``axis_name``: a ``torch.distributed.ProcessGroup`` whose ranks
+      each hold images of one batch; the stopping sum and threshold are
+      all-reduced over it, once a block (see
+      :func:`lasso_tpu_torch.linear.solvers.ista`).
 
     Returns codes ``z``; with ``return_iters=True`` also the number of
     iterations executed (an int).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name needs the parallel layer, which is not ported yet "
-            "(ROADMAP A item 13)")
+    check_axis_name(axis_name)
     a_ch = per_feature_alpha_row(alpha, z0.shape[1], x.shape[0])
     if a_ch is not None:
         alpha = a_ch.to(dtype=x.dtype, device=x.device).reshape(
@@ -164,7 +166,7 @@ def ista_conv2d(x, z0, weight, alpha=1.0, stride=1, padding=0, fast=True,
             padding=padding, fast=fast, maxiter=maxiter, lr=lr, tol=tol,
             restart=restart, kernel_precision=kernel_precision,
             mixed_tail=mixed_tail, nonneg=nonneg, use_pallas=use_pallas,
-            fuse_steps=fuse_steps, verbose=verbose,
+            fuse_steps=fuse_steps, axis_name=axis_name, verbose=verbose,
             return_iters=return_iters)
         if return_iters:
             z_u, k = out
@@ -184,7 +186,8 @@ def ista_conv2d(x, z0, weight, alpha=1.0, stride=1, padding=0, fast=True,
         lr = 1.0 / L
     lr = _f32(lr).cpu()
     # delta (float32) is compared with numel * tol rounded to float32
-    tol_total = float(_f32(z0.numel() * tol))
+    tol_total = global_tol(z0.numel(), tol, torch.float32, axis_name,
+                           x.device)
 
     if kernel_precision not in ("f32", "bf16", "mixed"):
         raise ValueError(f"kernel_precision must be 'f32', 'bf16' or "
@@ -210,7 +213,7 @@ def ista_conv2d(x, z0, weight, alpha=1.0, stride=1, padding=0, fast=True,
     if fused:
         z, k = _ista_conv2d_fused(x, z0, weight, alpha, padding, maxiter,
                                   lr, tol_total, phases, fuse_steps, nonneg,
-                                  restart)
+                                  restart, axis_name)
         return (z, k) if return_iters else z
 
     w_bf16 = round_bf16(weight) if phases[0][0] == "bf16" else None
@@ -252,7 +255,8 @@ def ista_conv2d(x, z0, weight, alpha=1.0, stride=1, padding=0, fast=True,
                 rdot = torch.sum((y - z_new) * (z_new - z), dim=(1, 2, 3),
                                  keepdim=True)
                 t_vec = torch.where(rdot > 0, 1.0, t_next)
-                done = float(torch.sum(torch.abs(z_new - z))) <= tol_total
+                done = float(psum(torch.sum(torch.abs(z_new - z)),
+                                  axis_name)) <= tol_total
                 z, z_prev, k = z_new, z, k + 1
         return (z, k) if return_iters else z
 
@@ -269,6 +273,7 @@ def ista_conv2d(x, z0, weight, alpha=1.0, stride=1, padding=0, fast=True,
                 y_next = z_next + ((t - 1) / t_next) * (z_next - z)
             else:
                 t_next, y_next = t, z_next
-            done = float(torch.sum(torch.abs(z_next - z))) <= tol_total
+            done = float(psum(torch.sum(torch.abs(z_next - z)),
+                              axis_name)) <= tol_total
             z, y, t, k = z_next, y_next, t_next, k + 1
     return (z, k) if return_iters else z

@@ -25,14 +25,7 @@ import torch
 from lasso_tpu_torch.config import get_precision
 from lasso_tpu_torch.linalg.basic import cholesky_solve
 from lasso_tpu_torch.linear.sparse_encode import sparse_encode
-from lasso_tpu_torch.ops.common import matmul
-
-
-def _no_axis_name(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name needs the parallel layer, which is not ported yet "
-            "(ROADMAP A item 13)")
+from lasso_tpu_torch.ops.common import check_axis_name, matmul, psum
 
 
 def _generator(generator, device):
@@ -70,17 +63,23 @@ def update_dict(dictionary, X, Z, generator=None, positive=False, eps=1e-10,
     its coefficients. One replacement atom per component is drawn up
     front from ``generator`` (``[K, D]``, as the JAX package draws them).
     Returns ``(dictionary, Z)`` as new tensors.
+
+    ``axis_name``: a ``torch.distributed.ProcessGroup`` whose ranks each
+    hold rows of X and Z. Each atom's refit ``Z[:, k]^T R`` is then
+    all-reduced over it (K collectives of D values), the only quantity
+    that spans rows; every rank then takes the same degenerate-atom
+    branch. ``generator`` must be seeded alike on every rank.
     """
-    _no_axis_name(axis_name)
+    check_axis_name(axis_name)
     generator = _generator(generator, dictionary.device)
     rand_atoms = _randn((dictionary.shape[1], dictionary.shape[0]),
                         generator, dictionary)
     return _update_dict(dictionary, X, Z, rand_atoms, positive, eps,
-                        precision)
+                        precision, axis_name)
 
 
 def _update_dict(dictionary, X, Z, rand_atoms, positive=False, eps=1e-10,
-                 precision=None):
+                 precision=None, axis_name=None):
     """:func:`update_dict` on given replacement atoms ``[K, D]``."""
     prec = get_precision(precision)
     W, Z = dictionary.clone(), Z.clone()
@@ -88,7 +87,7 @@ def _update_dict(dictionary, X, Z, rand_atoms, positive=False, eps=1e-10,
     for k in range(W.shape[1]):
         w_k, z_k = W[:, k], Z[:, k].clone()
         R = R + torch.outer(z_k, w_k)          # add back atom k
-        atom = matmul(z_k, R, prec)            # re-fit it, [D]
+        atom = psum(matmul(z_k, R, prec), axis_name)   # re-fit it, [D]
         if positive:
             atom = torch.clamp_min(atom, 0.0)
         atom_norm = torch.linalg.vector_norm(atom)
@@ -114,18 +113,22 @@ def update_dict_block(dictionary, X, Z, generator=None, positive=False,
     by one ridge solve, columns renormalized to unit norm, degenerate
     atoms replaced by random unit atoms (``[D, K]`` drawn up front from
     ``generator``) with their coefficients zeroed. Returns
-    ``(dictionary, Z)``."""
-    _no_axis_name(axis_name)
+    ``(dictionary, Z)``. ``axis_name`` goes to the ridge fit's Gram sums
+    (see :func:`update_dict_ridge`); ``generator`` must then be seeded
+    alike on every rank."""
+    check_axis_name(axis_name)
     generator = _generator(generator, dictionary.device)
     rand_atoms = _randn(tuple(dictionary.shape), generator, dictionary)
     return _update_dict_block(dictionary, X, Z, rand_atoms, positive, eps,
-                              lambd, precision)
+                              lambd, precision, axis_name)
 
 
 def _update_dict_block(dictionary, X, Z, rand_atoms, positive=False,
-                       eps=1e-10, lambd=1e-6, precision=None):
+                       eps=1e-10, lambd=1e-6, precision=None,
+                       axis_name=None):
     """:func:`update_dict_block` on given replacement atoms ``[D, K]``."""
-    V = update_dict_ridge(X, Z, lambd=lambd, precision=precision)  # [D, K]
+    V = update_dict_ridge(X, Z, lambd=lambd, precision=precision,
+                          axis_name=axis_name)                     # [D, K]
     if positive:
         V = torch.clamp_min(V, 0.0)
     norms = torch.linalg.vector_norm(V, dim=0)                     # [K]
@@ -144,12 +147,15 @@ def update_dict_ridge(x, z, lambd=1e-4, axis_name=None, precision=None):
     """Unconstrained ridge dictionary update: solve
     ``(Z^T Z + lambd N I) V^T = Z^T X`` and return ``V`` ``[D, K]``. A
     Gram matrix that is not positive definite yields NaNs, as in the JAX
-    package."""
-    _no_axis_name(axis_name)
+    package. ``axis_name``: a ``torch.distributed.ProcessGroup`` whose
+    ranks each hold rows of x and z; ``Z^T X``, ``Z^T Z`` and N are then
+    all-reduced over it to their values over the whole batch."""
+    check_axis_name(axis_name)
     prec = get_precision(precision)
-    rhs = matmul(z.T, x, prec)                                    # [K, D]
-    M = matmul(z.T, z, prec)                                      # [K, K]
-    n = torch.tensor(x.shape[0], dtype=x.dtype, device=x.device)
+    rhs = psum(matmul(z.T, x, prec), axis_name)                   # [K, D]
+    M = psum(matmul(z.T, z, prec), axis_name)                     # [K, K]
+    n = psum(torch.tensor(x.shape[0], dtype=x.dtype, device=x.device),
+             axis_name)
     M = M + (lambd * n) * torch.eye(M.shape[0], dtype=M.dtype,
                                     device=M.device)
     L, info = torch.linalg.cholesky_ex(M)

@@ -26,8 +26,9 @@ from lasso_tpu_torch.config import get_precision
 from lasso_tpu_torch.linalg.spectral import lipschitz_constant
 from lasso_tpu_torch.linear.solvers.ista import (_fuse_steps,
                                                  _resolve_tail_iters)
-from lasso_tpu_torch.ops.common import (matmul, pad_lasso_operands,
-                                        per_sample_alpha_column,
+from lasso_tpu_torch.ops.common import (check_axis_name, global_tol, matmul,
+                                        pad_lasso_operands,
+                                        per_sample_alpha_column, psum,
                                         resolve_pallas)
 from lasso_tpu_torch.ops.fused_group import (build_group_tables,
                                              fused_group_fista_multistep,
@@ -189,16 +190,15 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
     call and convergence is tested at block ends, so the fused path never
     stops before the unfused one would; ``kernel_precision`` 'f32', 'bf16'
     or 'mixed' (bf16 blocks, then an f32 tail of ``mixed_tail`` blocks or
-    ``mixed_tail_iters`` iterations). ``axis_name`` belongs to the parallel
-    layer, which is not ported.
+    ``mixed_tail_iters`` iterations). ``axis_name`` (a
+    ``torch.distributed.ProcessGroup``) all-reduces the stopping sum and
+    threshold over the ranks that share the batch, as in
+    :func:`lasso_tpu_torch.linear.solvers.ista`.
 
     Returns codes ``z`` [N, K]; with ``return_iters=True`` also the number
     of iterations executed (an int).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name needs the parallel layer, which is not ported yet "
-            "(ROADMAP A item 13)")
+    check_axis_name(axis_name)
     n_components = weight.shape[1]
     if torch.as_tensor(alpha).ndim == 2:
         raise ValueError("group_ista takes scalar or per-sample [N] "
@@ -218,7 +218,7 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
             group_weights=group_weights, l1_alpha=l1_scaled,
             fast=fast, lr=lr, maxiter=maxiter, tol=tol,
             power_iters=power_iters, precision=precision,
-            restart=restart, use_pallas=use_pallas,
+            axis_name=axis_name, restart=restart, use_pallas=use_pallas,
             fuse_steps=fuse_steps, kernel_precision=kernel_precision,
             mixed_tail=mixed_tail, mixed_tail_iters=mixed_tail_iters,
             verbose=verbose, return_iters=return_iters)
@@ -254,9 +254,10 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
                 lr=lr, maxiter=maxiter,
                 tol=tol * (N0 * K0) / z0_p.numel(),
                 power_iters=power_iters, precision=precision,
-                restart=restart, use_pallas=use_pallas,
-                fuse_steps=fuse_steps, kernel_precision=kernel_precision,
-                mixed_tail=mixed_tail, mixed_tail_iters=mixed_tail_iters,
+                axis_name=axis_name, restart=restart,
+                use_pallas=use_pallas, fuse_steps=fuse_steps,
+                kernel_precision=kernel_precision, mixed_tail=mixed_tail,
+                mixed_tail_iters=mixed_tail_iters,
                 return_iters=return_iters)
             if return_iters:
                 z_u, k = out
@@ -289,7 +290,8 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
     # every scalar of the recurrence is a float32 0-d tensor on the host
     lr = _f32(lr).cpu()
     # delta (float32) is compared with numel * tol rounded to float32
-    tol_total = float(_f32(z0.numel() * tol))
+    tol_total = global_tol(z0.numel(), tol, torch.float32, axis_name,
+                           x.device)
 
     # ---- fused-kernel routing (ops/fused_group) -------------------------
     if kernel_precision not in ("f32", "bf16", "mixed"):
@@ -339,7 +341,7 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
                         x, z, z_prev, weight, lr, thg_row, l1_th,
                         torch.zeros((steps,)), tables, steps=steps,
                         kernel_precision=kp, t_vec=t_vec, use_l1=use_l1)
-                    done = float(delta) <= tol_total
+                    done = float(psum(delta, axis_name)) <= tol_total
                     k += steps
 
             if kernel_precision == "mixed":
@@ -371,7 +373,7 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
             t_vec = torch.where(rdot > 0, 1.0, t_next)
             delta = torch.sum(torch.abs(z_new - z))
             z, z_prev, k = z_new, z, k + 1
-            done = float(delta) <= tol_total
+            done = float(psum(delta, axis_name)) <= tol_total
         return (z, k) if return_iters else z
 
     one, zero = _f32(1.0), _f32(0.0)
@@ -394,7 +396,7 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
                     x, z, z_prev, weight, lr, thg_row, l1_th,
                     torch.stack(mom_list), tables, steps=steps,
                     kernel_precision=kp, use_l1=use_l1)
-                done = float(delta) <= tol_total
+                done = float(psum(delta, axis_name)) <= tol_total
                 t, mom, k = t_c, m_c, k + steps
 
         if kernel_precision == "mixed":
@@ -429,6 +431,6 @@ def group_ista(x, z0, weight, alpha=1.0, groups=None, group_weights=None,
             mom = (t - 1) / t_next
             t = t_next
         z, z_prev, k = z_next, z, k + 1
-        done = float(delta) <= tol_total
+        done = float(psum(delta, axis_name)) <= tol_total
 
     return (z, k) if return_iters else z

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from lasso_tpu_torch.linalg.basic import batch_cholesky_solve, ridge
-from lasso_tpu_torch.ops.common import (INNER_ITERATIONS, matmul, row_dot,
+from lasso_tpu_torch.ops.common import (INNER_ITERATIONS, check_axis_name,
+                                        matmul, psum, row_dot,
                                         safe_div, weighted_gram)
 
 _INF = float("inf")
@@ -111,12 +112,16 @@ def interior_point(x, weight, z0=None, alpha=1.0, maxiter=20,
 
     ``eps`` (the small-value cutoff of the slack inverses) defaults to
     1e-5 under 'reference' and under 'mehrotra' in float32, else 1e-8.
-    ``axis_name`` belongs to the parallel layer, which is not ported.
+
+    ``axis_name`` (a ``torch.distributed.ProcessGroup`` whose ranks each
+    hold rows of one batch): the batch means of the stopping test, of the
+    CG forcing term and of the verbose report are all-reduced to the
+    means over the whole batch. With ``per_sample=True`` the rows stop on
+    their own, and the loop runs until every rank's rows have stopped
+    (stopped rows stay frozen), so that all ranks make the same
+    collectives.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name needs the parallel layer, which is not ported yet "
-            "(ROADMAP A item 13)")
+    check_axis_name(axis_name)
     if barrier_schedule not in ("reference", "adaptive", "mehrotra"):
         raise ValueError(f"barrier_schedule must be 'reference', "
                          f"'adaptive' or 'mehrotra', got "
@@ -163,6 +168,15 @@ def interior_point(x, weight, z0=None, alpha=1.0, maxiter=20,
                if per_sample else torch.zeros((), dtype=torch.bool,
                                               device=x.device))
 
+    def batch_mean(v):
+        """Mean over the (possibly shared) whole batch."""
+        if axis_name is None:
+            return torch.mean(v)
+        total = psum(torch.sum(v), axis_name)
+        count = psum(torch.tensor(v.shape[0], dtype=v.dtype,
+                                  device=v.device), axis_name)
+        return total / count
+
     def ftb(v, dv):
         """Fraction-to-boundary step length, capped at 1."""
         beta = torch.amin(torch.where(dv >= 0, _INF, -v / dv), 1,
@@ -183,7 +197,7 @@ def interior_point(x, weight, z0=None, alpha=1.0, maxiter=20,
         if kkt_solver == "cg" and cg_forcing:
             # inexact Newton: the inner target tracks the current
             # normalized duality gap
-            gap_cur = torch.mean(
+            gap_cur = batch_mean(
                 torch.sum(z * s, dim=1)
                 / (1 + torch.linalg.vector_norm(z, dim=1)
                    * torch.linalg.vector_norm(lmbda, dim=1)))
@@ -267,19 +281,23 @@ def interior_point(x, weight, z0=None, alpha=1.0, maxiter=20,
             mu_new = torch.where(done_prev, mu, mu_new)
             success = done_i
             stop = torch.all(done_i)
+            if axis_name is not None:
+                # every rank's rows stopped: the count of ranks not done
+                stop = psum((~stop).to(x.dtype), axis_name) == 0
             done_prev = done_i[:, None]
         else:
-            success = ((torch.mean(prim_i) < tol) & (torch.mean(dual_i) < tol)
-                       & (torch.mean(gap_i) < tol))
+            success = ((batch_mean(prim_i) < tol)
+                       & (batch_mean(dual_i) < tol)
+                       & (batch_mean(gap_i) < tol))
             stop = success
 
         if verbose:
             objf = (alpha * torch.sum(z_new)
                     + 0.5 * torch.sum(torch.square(lmbda_new)))
             print(f"niter {k + 1}  obj {float(objf):.4e}  prim "
-                  f"{float(torch.mean(prim_i)):.2e}  dual "
-                  f"{float(torch.mean(dual_i)):.2e}  gap "
-                  f"{float(torch.mean(gap_i)):.2e}")
+                  f"{float(batch_mean(prim_i)):.2e}  dual "
+                  f"{float(batch_mean(dual_i)):.2e}  gap "
+                  f"{float(batch_mean(gap_i)):.2e}")
 
         z, lmbda, s, mu, dl_prev = z_new, lmbda_new, s_new, mu_new, d_lmbda
         k += 1

@@ -18,9 +18,10 @@ import torch
 
 from lasso_tpu_torch.config import get_precision
 from lasso_tpu_torch.linalg.spectral import lipschitz_constant
-from lasso_tpu_torch.ops.common import (matmul, pad_lasso_operands,
+from lasso_tpu_torch.ops.common import (check_axis_name, global_tol, matmul,
+                                        pad_lasso_operands,
                                         per_feature_alpha_row,
-                                        per_sample_alpha_column,
+                                        per_sample_alpha_column, psum,
                                         resolve_pallas)
 from lasso_tpu_torch.ops.fused_ista import (fused_fista_multistep,
                                             fused_fista_step,
@@ -158,15 +159,17 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
     * ``alpha``: a scalar, an ``[N]`` per-sample vector (solved as the
       alpha=1 problem on row-rescaled inputs) or a ``[1, K]`` per-feature
       row (an elementwise threshold row).
-    * ``axis_name`` belongs to the parallel layer, which is not ported.
+    * ``axis_name``: a ``torch.distributed.ProcessGroup`` whose ranks
+      each hold rows of one batch (:mod:`lasso_tpu_torch.parallel`). The
+      threshold is then the sum of each rank's own ``numel * tol`` and
+      ``sum|dz|`` is all-reduced before the host reads it, once a block,
+      so that every rank stops at the same iteration. ``per_sample_tol``
+      needs no reduction (rows are whole on a rank).
 
     Returns codes ``z`` ([N, K]); with ``return_iters=True`` also the
     number of iterations executed (an int).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name needs the parallel layer, which is not ported yet "
-            "(ROADMAP A item 13)")
+    check_axis_name(axis_name)
     a_row = per_feature_alpha_row(alpha, weight.shape[1], x.shape[0])
     if a_row is not None:
         alpha = a_row.to(dtype=torch.float32, device=x.device)
@@ -181,7 +184,7 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
                    power_iters=power_iters, precision=precision,
                    use_pallas=use_pallas, kernel_precision=kernel_precision,
                    fuse_steps=fuse_steps, mixed_tail=mixed_tail,
-                   mixed_tail_iters=mixed_tail_iters,
+                   mixed_tail_iters=mixed_tail_iters, axis_name=axis_name,
                    per_sample_tol=per_sample_tol, restart=restart,
                    nonneg=nonneg, l2=l2, verbose=verbose,
                    return_iters=return_iters)
@@ -207,7 +210,8 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
                        use_pallas=use_pallas,
                        kernel_precision=kernel_precision,
                        fuse_steps=fuse_steps, mixed_tail=mixed_tail,
-                       mixed_tail_iters=mixed_tail_iters, restart=restart,
+                       mixed_tail_iters=mixed_tail_iters,
+                       axis_name=axis_name, restart=restart,
                        nonneg=nonneg, l2=l2, return_iters=return_iters)
             if return_iters:
                 z_u, k = out
@@ -235,7 +239,8 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
     lr = _f32(lr).cpu()
     prox_scale = 1.0 / (1.0 + l2 * lr)
     # delta (float32) is compared with numel * tol rounded to float32
-    tol_total = float(_f32(z0.numel() * tol))
+    tol_total = global_tol(z0.numel(), tol, torch.float32, axis_name,
+                           x.device)
     tol_row = weight.shape[1] * tol  # per-sample numel * tol
 
     fused = resolve_pallas(
@@ -253,7 +258,7 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
         z, k = _ista_restart(x, z0, weight, alpha, lr, maxiter, tol_total,
                              prox_scale, shrink, rss_grad, fused, S,
                              kernel_precision, mixed_tail, mixed_tail_iters,
-                             nonneg, l2, verbose, prec)
+                             nonneg, l2, verbose, prec, axis_name)
         return (z, k) if return_iters else z
 
     one, zero = _f32(1.0), _f32(0.0)
@@ -277,7 +282,7 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
             z, z_prev, delta = fused_fista_multistep(
                 x, z, z_prev, weight, lr, alpha * lr, torch.stack(mom_list),
                 steps=steps, kernel_precision=kp, nonneg=nonneg, l2=l2)
-            done = float(delta) <= tol_total
+            done = float(psum(delta, axis_name)) <= tol_total
             t, mom, k = t_c, m_c, k + steps
 
     if S > 1:
@@ -339,7 +344,7 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
             z_next = torch.where(keep, z, z_next)
             z = torch.where(keep, z_prev, z)
         else:
-            done = float(delta) <= tol_total
+            done = float(psum(delta, axis_name)) <= tol_total
         if fast:
             t_next = (1 + torch.sqrt(1 + 4 * t * t)) / 2
             mom = (t - 1) / t_next
@@ -351,7 +356,8 @@ def ista(x, z0, weight, alpha=1.0, fast=True, lr="auto", maxiter=10,
 
 def _ista_restart(x, z0, weight, alpha, lr, maxiter, tol_total, prox_scale,
                   shrink, rss_grad, fused, S, kernel_precision, mixed_tail,
-                  mixed_tail_iters, nonneg, l2, verbose, prec):
+                  mixed_tail_iters, nonneg, l2, verbose, prec,
+                  axis_name=None):
     """FISTA with per-row adaptive restart. Returns ``(z, n_iter)``."""
     # carry convention t_{k-1}, init 0: the first momentum coefficient is
     # (0 - 1)/1 = -1 against a zero (z - z_prev) difference
@@ -372,7 +378,7 @@ def _ista_restart(x, z0, weight, alpha, lr, maxiter, tol_total, prox_scale,
                 z, z_prev, t_vec, delta = fused_fista_multistep(
                     x, z, z_prev, weight, lr, th_s, 0.0, steps=steps,
                     kernel_precision=kp, t_vec=t_vec, nonneg=nonneg, l2=l2)
-                done = float(delta) <= tol_total
+                done = float(psum(delta, axis_name)) <= tol_total
                 k += steps
 
         if kernel_precision == "mixed":
@@ -403,5 +409,5 @@ def _ista_restart(x, z0, weight, alpha, lr, maxiter, tol_total, prox_scale,
         t_vec = torch.where(rdot > 0, 1.0, t_next)
         delta = torch.sum(torch.abs(z_new - z))
         z, z_prev, k = z_new, z, k + 1
-        done = float(delta) <= tol_total
+        done = float(psum(delta, axis_name)) <= tol_total
     return z, k

@@ -19,6 +19,7 @@ import torch
 
 from lasso_tpu_torch.config import require_fp32_matmul
 from lasso_tpu_torch.nonlinear._autodiff import hvp_at, value_and_grad
+from lasso_tpu_torch.ops.common import check_axis_name, global_tol, psum
 from lasso_tpu_torch.ops.shrink import soft_threshold
 
 softshrink = soft_threshold  # the non-scalar-theta variant
@@ -100,25 +101,26 @@ def ista_nl(x, z0, decoder, alpha=1.0, fast=True, maxiter=10, lr="auto",
     * The stop is batch-global: ``sum |z - z_next| <= z0.numel() * tol``.
     * ``verbose`` >= 1 prints the initial and final loss, > 1 also the loss
       of every iteration.
-    * ``axis_name`` belongs to the parallel layer, which is not ported.
+    * ``axis_name``: a ``torch.distributed.ProcessGroup`` whose ranks
+      each hold rows of one batch; the stopping sum and threshold are
+      all-reduced over it (``decoder`` must act row by row). The Hessian
+      power iteration is row-local.
 
     Returns ``z``, and with ``return_iters=True`` also the number of
     iterations run (an int).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name needs the parallel layer, which is not ported yet "
-            "(ROADMAP A item 13)")
+    check_axis_name(axis_name)
     u0 = None
     if _check_lr(lr):
         u0 = _normalize(_normal(z0.shape, z0, generator), _feature_dims(z0))
     return _ista_nl(x, z0, decoder, alpha, fast, maxiter, lr, power_iters,
-                    tol, u0, lr_refresh, restart, verbose, return_iters)
+                    tol, u0, lr_refresh, restart, verbose, return_iters,
+                    axis_name)
 
 
 @torch.no_grad()
 def _ista_nl(x, z0, decoder, alpha, fast, maxiter, lr, power_iters, tol, u0,
-             lr_refresh, restart, verbose, return_iters):
+             lr_refresh, restart, verbose, return_iters, axis_name=None):
     """:func:`ista_nl` given ``u0``, the normalized start of the power
     iteration (used only with ``lr='auto'``)."""
     verbose = int(verbose)
@@ -131,7 +133,7 @@ def _ista_nl(x, z0, decoder, alpha, fast, maxiter, lr, power_iters, tol, u0,
         require_fp32_matmul()
     dtype = x.dtype
     # delta is compared with numel * tol rounded to x's dtype, as in JAX
-    tol_total = float(torch.tensor(z0.numel() * tol, dtype=dtype))
+    tol_total = global_tol(z0.numel(), tol, dtype, axis_name, x.device)
     dims = _feature_dims(z0)
     col = (z0.shape[0],) + (1,) * (z0.ndim - 1)
 
@@ -176,7 +178,7 @@ def _ista_nl(x, z0, decoder, alpha, fast, maxiter, lr, power_iters, tol, u0,
             lr_c, u_c = refresh(k, at, lr_c, u_c)
         z_next = step(at, lr_c)
         delta = torch.sum(torch.abs(z - z_next))
-        done = float(delta) <= tol_total                     # host sync
+        done = float(psum(delta, axis_name)) <= tol_total    # host sync
         if restart:
             rdot = torch.sum((at - z_next) * (z_next - z), dim=dims,
                              keepdim=True)

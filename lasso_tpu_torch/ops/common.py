@@ -8,6 +8,7 @@ from __future__ import annotations
 import collections
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from lasso_tpu_torch.config import get_precision, require_fp32_matmul
@@ -99,6 +100,54 @@ def matmul(a, b, precision=None):
         b_hi, b_lo = split_bf16(b)
         return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
     return a @ b
+
+
+def l1_norm(x):
+    return torch.sum(torch.abs(x))
+
+
+def sq_norm(x):
+    return torch.sum(torch.square(x))
+
+
+def check_axis_name(axis_name):
+    """Refuse an ``axis_name`` that is neither None nor a
+    ``torch.distributed.ProcessGroup``.
+
+    In the JAX package ``axis_name`` names the mesh axis a solver's
+    batch-global sums ``psum`` over inside ``jax.shard_map``; here it is
+    the process group whose ranks share the batch, one process per device
+    (:mod:`lasso_tpu_torch.parallel` passes ``mesh.get_group('data')``).
+    """
+    if axis_name is not None and not isinstance(axis_name,
+                                                dist.ProcessGroup):
+        raise TypeError(
+            f"axis_name must be None or a torch.distributed.ProcessGroup "
+            f"(the group whose ranks share the batch, such as "
+            f"mesh.get_group('data')), got {axis_name!r}")
+
+
+def psum(value, axis_name):
+    """Sum of ``value`` over the ranks of the process group ``axis_name``
+    (``value`` itself when it is None), as ``lax.psum`` sums over a mesh
+    axis. The sum is a new tensor on value's device; every rank must call
+    it, in the same order."""
+    if axis_name is None:
+        return value
+    out = value.detach().clone().contiguous()
+    dist.all_reduce(out, group=axis_name)
+    return out
+
+
+def global_tol(numel, tol, dtype, axis_name, device):
+    """The batch-global stopping threshold ``numel * tol`` as a float:
+    rounded to ``dtype`` and, under ``axis_name``, the sum over the ranks
+    of each rank's own rounded ``numel * tol`` (on ``device``), as the
+    JAX package psums it."""
+    total = torch.tensor(numel * tol, dtype=dtype)
+    if axis_name is not None:
+        total = psum(total.to(device), axis_name)
+    return float(total)
 
 
 def safe_div(num, den):

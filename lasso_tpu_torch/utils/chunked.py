@@ -60,7 +60,7 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
     if output == "csr":
         raise NotImplementedError(
             "output='csr' needs the native CSR packer, which is not ported "
-            "yet (ROADMAP A item 13)")
+            "yet (ROADMAP A item 13b)")
     if device is None:
         device = weight.device if torch.is_tensor(weight) else "cuda"
     device = resolve_device(device)

@@ -195,7 +195,7 @@ def test_unfused_options_match_jax(capsys):
 def test_validation():
     x, W, z0 = _problem(1, 2, 8, 1, 8, 8, 3, 3)
     args = (t(x), t(z0), t(W), 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 13"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         ista_conv2d(*args, axis_name="batch")
     for bad in ({"kernel_precision": "fp8"}, {"lr": "fast"},
                 {"kernel_precision": "mixed", "mixed_tail": 0},

@@ -201,18 +201,19 @@ def test_lip_bound_matches_jax(rng, padding, sqrt):
 
 
 @pytest.mark.parametrize("ksize", [1, 3, 5, 7])
-@pytest.mark.parametrize("padding", [0, 1, 2, 4])
-def test_lip_bound_geometry_matches_jax(ksize, padding):
+@pytest.mark.parametrize("paddings", [(0,), (1,), (2, 4)])
+def test_lip_bound_geometry_matches_jax(ksize, paddings):
     """The Araujo bound and its module at every odd kernel size and
-    padding (rtol 1e-5)."""
-    rng = np.random.default_rng(ksize * 10 + padding)
-    k = rng.standard_normal((5, 3, ksize, ksize)).astype(np.float32)
-    want = float(j_lip_bound(jnp.asarray(k), padding=padding))
-    np.testing.assert_allclose(
-        float(lip_bound_conv2d(t(k), padding=padding)), want, rtol=1e-5)
-    np.testing.assert_allclose(
-        float(LipBoundConv2d(k.shape, padding=padding)(t(k))), want,
-        rtol=1e-5)
+    padding (rtol 1e-5); paddings 2 and 4 share a case."""
+    for padding in paddings:
+        rng = np.random.default_rng(ksize * 10 + padding)
+        k = rng.standard_normal((5, 3, ksize, ksize)).astype(np.float32)
+        want = float(j_lip_bound(jnp.asarray(k), padding=padding))
+        np.testing.assert_allclose(
+            float(lip_bound_conv2d(t(k), padding=padding)), want, rtol=1e-5)
+        np.testing.assert_allclose(
+            float(LipBoundConv2d(k.shape, padding=padding)(t(k))), want,
+            rtol=1e-5)
 
 
 @pytest.mark.parametrize("transpose,stride,padding,imsize", [

@@ -215,7 +215,7 @@ def test_errors(rng, tmp_path):
         tdl.dict_learning_online(X, K, batch_size=0)
     with pytest.raises(ValueError, match="forget"):
         tdl.dict_learning_online(X, K, forget=1.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         tdl.update_dict(torch.eye(D, K), X, torch.zeros(N, K),
                         axis_name="batch")
     # the CLI's default maxiter reaches coord_descent_mod, which takes

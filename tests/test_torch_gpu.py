@@ -363,3 +363,35 @@ def test_omp_on_card_matches_cpu():
             use_pallas=True, return_iters=True) for dev in ("cpu", "cuda")}
         assert out["cuda"][1] == out["cpu"][1]
         rule(x, W, n(out["cpu"][0]), n(out["cuda"][0]))
+
+
+def test_data_parallel_encode_one_nccl_rank_is_sparse_encode():
+    """lasso_tpu_torch.parallel on one NCCL rank (an in-memory store, no
+    network): data_parallel_encode at 512x256->1024 with the all-reduced
+    stop (tol 1e-5 over 64 iterations, 'mixed') equals sparse_encode bit
+    for bit, with the same count and the same K1/K2 launches."""
+    _need_card()
+    import torch.distributed as dist
+
+    from lasso_tpu_torch.linear import sparse_encode
+    from lasso_tpu_torch.parallel import data_parallel_encode, make_mesh
+    rng = np.random.default_rng(19)
+    x, _, _, W = (t(a).cuda() for a in make_problem(rng, 512, 256, 1024))
+    kw = dict(alpha=0.1, algorithm="ista", lr=0.1, maxiter=64, tol=1e-5,
+              kernel_precision="mixed", return_iters=True)
+    _cuda.reset_launch_counts()
+    z_s, k_s = sparse_encode(x, W, **kw)
+    single = _cuda.launch_counts()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(devices="cuda")
+        _cuda.reset_launch_counts()
+        z_p, k_p = data_parallel_encode(mesh, x, W, **kw)
+        counts = _cuda.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert k_p == k_s and torch.equal(z_p, z_s)
+    names = [f"{k}_{kp}" for k in ("fista_resid", "fista_grad_prox")
+             for kp in ("bf16", "f32")]
+    assert all(counts[n] == single[n] > 0 for n in names)

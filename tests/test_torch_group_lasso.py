@@ -238,7 +238,7 @@ def test_sparse_encode_and_chunked_dispatch(rng, jax_group_shrink_in_f32):
                       algorithm="group-ista", groups=8)
     with pytest.raises(ValueError, match="groups"):
         group_ista(t(x), torch.zeros((20, 256)), t(W), alpha=0.2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         group_ista(t(x), torch.zeros((20, 256)), t(W), groups=8,
                    axis_name="batch")
     with pytest.raises(ValueError, match="restart"):

@@ -130,7 +130,7 @@ def test_verbose_prints_loss_each_iteration(problem, capsys):
 def test_argument_errors(problem):
     x, W = problem
     args = (t(x), torch.zeros((16, W.shape[1])), t(W), 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         tista(*args, axis_name="batch")
     with pytest.raises(ValueError):
         tista(*args, lr=0.1, kernel_precision="tf32")

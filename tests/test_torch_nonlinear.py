@@ -328,7 +328,8 @@ def test_decoder_contract_and_errors(capsys):
     run inside and outside torch.no_grad() alike, leave every .grad unset
     and return codes with no graph, the same codes as a plain function
     of the same weights; the public entries draw from a torch.Generator
-    (seed 0 by default); and the ValueErrors and NotImplementedError."""
+    (seed 0 by default); the ValueErrors, and the TypeError of an
+    axis_name that is no process group."""
     params, x, z0 = _mlp(np.float32)
     pt = from_numpy_tree(params, "cpu")
     assert pt["w1"].dtype == torch.float32 and pt["w1"].is_contiguous()
@@ -392,7 +393,7 @@ def test_decoder_contract_and_errors(capsys):
         ista_nl(xt, z0t, dec, lr="fast")
     with pytest.raises(ValueError):
         ista_nl(xt, z0t, dec, fast=False, restart=True)
-    with pytest.raises(NotImplementedError, match="A item 13"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         ista_nl(xt, z0t, dec, axis_name="batch")
     with pytest.raises(ValueError):
         owlqn(rss, z0t, line_search="wolfe")
