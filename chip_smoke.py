@@ -305,6 +305,36 @@ before the last line is printed.
    single process and the same count, at 16384 and at 16383 rows. Each
    call's seconds (the median of 5 calls, or of the 5 EM steps; the
    gloo ranks' of 3) beside the single process's.
+20. The last modules. (a) The native C++ host pipeline
+   (``lasso_tpu_torch.native``, built by g++ from the checkout) at
+   BASELINE.md row 4: 400 stroke images 28x28, dense 8x8 patches and
+   their centring equal to the numpy versions (centring within 1e-6),
+   41 random patches an image (seed 0) repeatable and equal at one
+   thread, each a window of its image, the first 16384 centred as the
+   training data; the seconds of each step. (b) CSR serving at phase 4's
+   width: ``chunked_encode`` dense and with ``output='csr'`` (unpacked bit
+   for bit the dense codes, ``row_ptr[-1]`` their nonzero count, the same
+   K1/K2 launches) and ``encode --csr`` through the CLI (its three files
+   unpack to the same codes); the seconds of each, of the packing, and
+   the dense against the CSR bytes. (c) ``export_encoder`` at the
+   headline ('mixed', 200 iterations, tol 1e-5, lr 'auto', a symbolic
+   batch), loaded and called at 16384 and 4096 rows: bit for bit
+   ``sparse_encode`` with the same K1/K2 launches; an export at tol 1e-2
+   stops early with ``sparse_encode``'s codes, iterations and launches;
+   the blob's
+   bytes, export, load and call seconds beside ``sparse_encode``'s.
+   (d) ``dict_learning_resumable`` on (a)'s patches (16384x64 -> 256,
+   alpha 0.1, sequential M-step, 10 EM steps of 50 iterations, a
+   checkpoint every 3 steps): bit for bit ``dict_learning``, and after the
+   checkpoints past step 6 are deleted the resumed run (4 steps of K1/K2
+   launches) bit for bit the uninterrupted one; seconds per step and per
+   save, and a checkpoint's bytes. (e) ``config_for('ista', ...)``
+   against ``sparse_encode`` bit for bit with equal launches;
+   ``capture_trace`` of a ``trace('encode')`` region holding the region
+   and the K1/K2 kernel names; ``time_solver`` of phase 2's encode beside
+   phase 2's seconds; ``debug_nans`` raising on ``log(-1)`` on the card and
+   not in a headline encode. Phase 20's K1/K2 launches are added to the
+   headline rows of the kernels line.
 
 Before the last line it prints the kernels' JSON line and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -320,6 +350,7 @@ import itertools
 import json
 import os
 import runpy
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -354,7 +385,11 @@ from lasso_tpu_torch.ops.common import INNER_ITERATIONS  # noqa: E402
 from lasso_tpu_torch.nonlinear import (  # noqa: E402
     hessian_2norm, ista_nl, iterative_ridge_bfgs, make_implicit_nl_encoder,
     owlqn, split_bregman_nl)
-from lasso_tpu_torch.utils import chunked_encode, from_numpy_tree  # noqa: E402
+from lasso_tpu_torch import native  # noqa: E402
+from lasso_tpu_torch.utils import (  # noqa: E402
+    capture_trace, chunked_encode, config_for, debug_nans,
+    dict_learning_resumable, export_encoder, from_numpy_tree, latest_step,
+    load_encoder, time_solver, trace)
 
 N, D, K = headline_bench.N, headline_bench.D, headline_bench.K
 ALPHA = headline_bench.ALPHA
@@ -402,6 +437,7 @@ CONV_ALPHA, CONV_ITERS, CONV_SERVE, CONV_CHUNK = 0.1, 200, 600, 256
 CONV_TOL = {"f32": (3e-5, 1e-5), "bf16": (1e-3, 1e-4)}
 DEV = torch.device("cuda")
 DL = importlib.import_module("lasso_tpu_torch.linear.dict_learning")
+CKPT = importlib.import_module("lasso_tpu_torch.utils.checkpoint")
 SCR = importlib.import_module("lasso_tpu_torch.linear.screening")
 SE = importlib.import_module("lasso_tpu_torch.linear.sparse_encode")
 
@@ -675,6 +711,7 @@ def phase_headline(x_np, W_np):
                               mixed_tail_iters=37, return_iters=True, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    RESULTS["headline_s"] = seconds
     counts = _cuda.launch_counts()
     print("[2] headline launch counts:", json.dumps(counts))
     print(f"[2] peak device memory of the solve above its inputs: "
@@ -4113,6 +4150,372 @@ def phase_parallel(x_np, W_np, X_train):
     return total
 
 
+# phase 20: the last modules. (a) the native patch pipeline at BASELINE.md
+# row 4 (benchmarks/dict_learning_bench.py:40-58: 400 stroke images 28x28,
+# 8x8 patches, 41 an image, seed 0, centred, the first 16384); (b) CSR
+# serving at phase 4's width; (c) an exported encoder at the headline;
+# (d) resumable training on (a)'s patches (16384x64 -> 256, alpha 0.1,
+# sequential M-step, 10 EM steps of 50-iteration E-steps, a checkpoint
+# every 3); (e) typed configs and the profiling helpers
+DL_IMAGES, DL_PATCH, DL_PER_IMAGE, DL_N, DL_K = 400, 8, 41, 16384, 256
+DL_KW = dict(alpha=0.1, constrained=True, dict_update="sequential",
+             steps=10, maxiter=50, tol=0.0)
+DL_SAVE_EVERY, DL_KEEP = 3, 6
+EXPORT_KW = dict(maxiter=200, tol=1e-5, kernel_precision="mixed")
+EXPORT_ROWS = (16384, 4096)
+RESULTS = {}
+
+
+def make_stroke_images(n_images=200, size=28, seed=0):
+    """Random-walk 'strokes' on a grid (a numpy copy of
+    examples/dict_learning_patches.py:25)."""
+    rng = np.random.default_rng(seed)
+    imgs = np.zeros((n_images, size, size), np.float32)
+    for i in range(n_images):
+        n_strokes = rng.integers(2, 5)
+        for _ in range(n_strokes):
+            x, y = rng.integers(4, size - 4, size=2).astype(float)
+            vx, vy = rng.normal(size=2)
+            for _ in range(rng.integers(8, 20)):
+                xi, yi = int(round(x)), int(round(y))
+                if 0 <= xi < size and 0 <= yi < size:
+                    imgs[i, yi, xi] = 1.0
+                    for dx, dy in ((0, 1), (1, 0)):
+                        if 0 <= yi + dy < size and 0 <= xi + dx < size:
+                            imgs[i, yi + dy, xi + dx] = max(
+                                imgs[i, yi + dy, xi + dx], 0.5)
+                vx += rng.normal() * 0.6
+                vy += rng.normal() * 0.6
+                n = max(1.0, np.hypot(vx, vy))
+                x += vx / n * 1.5
+                y += vy / n * 1.5
+    return imgs
+
+
+def host_timed(fn):
+    """(result, seconds) of one host call."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def numpy_native(fn):
+    """``fn()`` with the native library hidden: the numpy versions."""
+    get_lib = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        return fn()
+    finally:
+        native.get_lib = get_lib
+
+
+def phase_native():
+    """(a): the build, the patch pipeline against its numpy versions, and
+    the training patches."""
+    lib, secs = host_timed(native.get_lib)
+    check(lib is not None and native.have_native(),
+          "the native library builds with g++")
+    print(f"[20a] native library {native.library_path().name} built and "
+          f"loaded in {secs:.3f} s")
+    imgs, t_imgs = host_timed(lambda: make_stroke_images(DL_IMAGES, 28, 0))
+    dense, t_dense = host_timed(
+        lambda: native.extract_patches_dense(imgs, DL_PATCH))
+    dense_np = numpy_native(
+        lambda: native.extract_patches_dense(imgs, DL_PATCH))
+    check(np.array_equal(dense, dense_np),
+          "dense patches equal the numpy version")
+    centred, t_center = host_timed(
+        lambda: native.center_patches(dense.copy()))
+    for normalize in (False, True):
+        c_nat = native.center_patches(dense.copy(), normalize=normalize)
+        c_np = numpy_native(
+            lambda: native.center_patches(dense.copy(), normalize=normalize))
+        err = float(np.abs(c_nat - c_np).max())
+        check(err <= 1e-6, f"centring (normalize={normalize}) within 1e-6 "
+              f"of the numpy version: {err:.3e}")
+    rand, t_rand = host_timed(lambda: native.extract_patches_random(
+        imgs, DL_PATCH, DL_PER_IMAGE, seed=0))
+    check(np.array_equal(rand, native.extract_patches_random(
+        imgs, DL_PATCH, DL_PER_IMAGE, seed=0)), "random patches repeat")
+    check(np.array_equal(rand, native.extract_patches_random(
+        imgs, DL_PATCH, DL_PER_IMAGE, seed=0, threads=1)),
+        "random patches equal at threads=1")
+    windows = dense.reshape(DL_IMAGES, -1, DL_PATCH * DL_PATCH)
+    valid = all(
+        set(p.tobytes() for p in rand[i * DL_PER_IMAGE:
+                                      (i + 1) * DL_PER_IMAGE])
+        <= set(w.tobytes() for w in windows[i]) for i in range(DL_IMAGES))
+    check(valid, "every random patch is a window of its image")
+    X, t_x = host_timed(lambda: native.center_patches(rand)[:DL_N])
+    print(f"[20a] {DL_IMAGES} stroke images {t_imgs:.3f} s; dense patches "
+          f"{dense.shape} {t_dense:.4f} s, centred {t_center:.4f} s (equal "
+          f"to the numpy versions); random patches {rand.shape} "
+          f"{t_rand:.4f} s, centred {t_x:.4f} s, repeatable, equal at one "
+          f"thread, every one a window of its image; card {card_line()}")
+    check(X.shape == (DL_N, DL_PATCH * DL_PATCH), "training patches")
+    return X
+
+
+def phase_csr_serving():
+    """(b): chunked dense and CSR output at phase 4's width, and the CLI's
+    ``encode --csr``; returns their K1/K2 launches."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((CLI_ROWS, D)).astype(np.float32)
+    W = (rng.standard_normal((D, K)) / np.sqrt(D)).astype(np.float32)
+    Wd = torch.from_numpy(W).to(DEV)
+    kw = dict(alpha=ALPHA, chunk_size=CLI_CHUNK, maxiter=100, tol=0.0,
+              kernel_precision="f32")
+    launches = collections.Counter()
+    pack = native.pack_codes_csr
+    packing = []
+
+    def timed_pack(*a, **k):
+        out, secs = host_timed(lambda: pack(*a, **k))
+        packing.append(secs)
+        return out
+
+    def run(**extra):
+        _cuda.reset_launch_counts()
+        out, secs = timed(lambda: chunked_encode(x, Wd, **kw, **extra))
+        counts = _cuda.launch_counts()
+        launches.update(counts)
+        return out, secs, {k: counts.get(k, 0) for k in
+                           ("fista_resid_f32", "fista_grad_prox_f32")}
+
+    run()   # the first call of the kernels and of the host's copies
+    dense, t_dense, n_dense = run()
+    native.pack_codes_csr = timed_pack
+    try:
+        (v, c, rp), t_csr, n_csr = run(output="csr")
+    finally:
+        native.pack_codes_csr = pack
+    check(np.array_equal(native.unpack_codes_csr(v, c, rp, K), dense),
+          "CSR output unpacks to the dense codes bit for bit")
+    check(int(rp[-1]) == int(np.count_nonzero(dense)),
+          "row_ptr[-1] is the dense nonzero count")
+    check(n_dense == n_csr and min(n_dense.values()) > 0,
+          f"dense and CSR launch the same K1/K2: {n_dense} {n_csr}")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("X.npy", "W.npy")]
+        np.save(paths[0], x)
+        np.save(paths[1], W)
+        argv = sys.argv
+        sys.argv = ["lasso_tpu_torch", "encode", *paths, "--csr", "-o",
+                    os.path.join(tmp, "Z.npy"), "--alpha", str(ALPHA),
+                    "--chunk-size", str(CLI_CHUNK), "--solver-args",
+                    json.dumps({"maxiter": 100, "tol": 0.0})]
+        _cuda.reset_launch_counts()
+        _, t_cli = timed(lambda: runpy.run_module(
+            "lasso_tpu_torch", run_name="__main__", alter_sys=True))
+        launches.update(_cuda.launch_counts())
+        sys.argv = argv
+        parts = [np.load(os.path.join(tmp, f"Z.{p}.npy"))
+                 for p in ("values", "cols", "row_ptr")]
+    check(np.array_equal(native.unpack_codes_csr(*parts, K), dense),
+          "encode --csr writes the dense codes bit for bit")
+    csr_bytes = v.nbytes + c.nbytes + rp.nbytes
+    print(f"[20b] {CLI_ROWS}x{D}->{K}, chunks of {CLI_CHUNK}: dense "
+          f"{t_dense:.4f} s, CSR {t_csr:.4f} s (packing {sum(packing):.4f} s "
+          f"in {len(packing)} chunks on the host), CLI --csr {t_cli:.4f} s; "
+          f"{dense.nbytes} dense bytes, {csr_bytes} CSR bytes "
+          f"({1 - int(rp[-1]) / dense.size:.4f} of the codes zero); K1/K2 "
+          f"launches {json.dumps(n_csr)} each way; card {card_line()}")
+    return launches
+
+
+def median_seconds(fn, reps=5):
+    return float(np.median([timed(fn)[1] for _ in range(reps)]))
+
+
+def phase_export(x_np, W_np):
+    """(c): an exported encoder at the headline against sparse_encode."""
+    W = torch.from_numpy(W_np).to(DEV)
+    launches = collections.Counter()
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        launches.update(counts)
+        return out, {k: v for k, v in counts.items()
+                     if k.startswith("fista_") and v}
+
+    blob, t_export = host_timed(lambda: export_encoder(
+        W, alpha=ALPHA, batch_size=None, **EXPORT_KW))
+    call, t_load = host_timed(lambda: load_encoder(blob))
+    xs = {rows: torch.from_numpy(x_np[:rows]).to(DEV)
+          for rows in EXPORT_ROWS}
+    for rows, x in xs.items():
+        z, n_call = counted(lambda: call(x, W))
+        want, n_want = counted(lambda: sparse_encode(x, W, ALPHA,
+                                                     **EXPORT_KW))
+        check(torch.equal(z, want), f"exported codes at {rows} rows equal "
+              f"sparse_encode's bit for bit")
+        check(n_call == n_want and min(n_call.values()) > 0,
+              f"exported and sparse_encode launch the same K1/K2 at {rows} "
+              f"rows: {n_call} {n_want}")
+        print(f"[20c] {rows} rows: exported codes equal sparse_encode's, "
+              f"launches {json.dumps(n_call)}")
+    x = xs[EXPORT_ROWS[0]]
+    t_call = median_seconds(lambda: call(x, W))
+    t_direct = median_seconds(lambda: sparse_encode(x, W, ALPHA,
+                                                    **EXPORT_KW))
+    stop_kw = {**EXPORT_KW, "tol": 1e-2}
+    stop_blob, t_export2 = host_timed(lambda: export_encoder(
+        W, alpha=ALPHA, return_iters=True, **stop_kw))
+    stop = load_encoder(stop_blob)
+    (z, k), n_stop = counted(lambda: stop(x, W))
+    (want, k_want), n_stop_want = counted(lambda: sparse_encode(
+        x, W, ALPHA, return_iters=True, **stop_kw))
+    check(torch.equal(z, want) and int(k) == k_want < EXPORT_KW["maxiter"]
+          and n_stop == n_stop_want,
+          f"the tol 1e-2 export stops early with sparse_encode's codes and "
+          f"launches: {int(k)} and {k_want} iterations, {n_stop} "
+          f"{n_stop_want}")
+    print(f"[20c] export {t_export:.3f} s (the second {t_export2:.3f} s), "
+          f"load {t_load:.3f} s, "
+          f"{len(blob)} bytes; a call at {x.shape[0]} rows {t_call:.4f} s, "
+          f"sparse_encode {t_direct:.4f} s (medians of 5); tol 1e-2 stops "
+          f"at {int(k)} iterations exported, {k_want} in sparse_encode; "
+          f"card {card_line()}")
+    return launches
+
+
+def phase_resumable(X_np):
+    """(d): dict_learning_resumable on (a)'s patches."""
+    X = torch.from_numpy(X_np).to(DEV)
+    launches = collections.Counter()
+    saves = []
+    save = CKPT.save_checkpoint
+
+    def timed_save(*a, **k):
+        out, secs = timed(lambda: save(*a, **k))
+        saves.append(secs)
+        return out
+
+    def run(fn):
+        _cuda.reset_launch_counts()
+        out, secs = timed(fn)
+        counts = _cuda.launch_counts()
+        launches.update(counts)
+        return out, secs, counts.get("fista_resid_f32", 0)
+
+    def gen():
+        return torch.Generator(device=DEV).manual_seed(0)
+
+    (W0, l0), t_plain, n_plain = run(lambda: DL.dict_learning(
+        X, DL_K, generator=gen(), **DL_KW))
+    with tempfile.TemporaryDirectory() as tmp:
+        CKPT.save_checkpoint = timed_save
+        try:
+            (W1, l1), t_res, n_res = run(lambda: dict_learning_resumable(
+                X, DL_K, generator=gen(), ckpt_dir=tmp,
+                save_every=DL_SAVE_EVERY, **DL_KW))
+            check(torch.equal(W1, W0) and torch.equal(l1, l0),
+                  "resumable training equals dict_learning bit for bit")
+            state_bytes = os.path.getsize(os.path.join(
+                tmp, str(DL_KEEP), "state.pt"))
+            for step in os.listdir(tmp):
+                if int(step) > DL_KEEP:
+                    shutil.rmtree(os.path.join(tmp, step))
+            check(latest_step(tmp) == DL_KEEP, "checkpoints after step 6 "
+                  "deleted")
+            (W2, l2), t_resume, n_resume = run(
+                lambda: dict_learning_resumable(
+                    X, DL_K, generator=gen(), ckpt_dir=tmp,
+                    save_every=DL_SAVE_EVERY, **DL_KW))
+        finally:
+            CKPT.save_checkpoint = save
+    steps = DL_KW["steps"]
+    check(torch.equal(W2, W0) and torch.equal(l2, l0),
+          "the resumed run equals the uninterrupted one bit for bit")
+    check(n_plain > 0 and n_res == n_plain
+          and n_resume * steps == n_plain * (steps - DL_KEEP),
+          f"K1 launches: dict_learning {n_plain}, resumable {n_res}, "
+          f"resumed from step {DL_KEEP} {n_resume}")
+    print(f"[20d] {DL_N}x{DL_PATCH * DL_PATCH}->{DL_K}, {steps} EM steps: "
+          f"dict_learning {t_plain / steps:.4f} s a step, resumable "
+          f"{t_res / steps:.4f} s a step with {len(saves)} saves of "
+          f"{np.median(saves):.4f} s (median), {state_bytes} bytes each; "
+          f"resumed from step {DL_KEEP}: {t_resume:.4f} s, K1 launches "
+          f"{n_plain}/{n_res}/{n_resume}; losses {l0[0]:.6f} -> "
+          f"{l0[-1]:.6f}; card {card_line()}")
+    return launches
+
+
+def phase_configs_profiling(x_np, W_np):
+    """(e): a typed config against sparse_encode, a trace of one encode,
+    time_solver and debug_nans."""
+    x = torch.from_numpy(x_np).to(DEV)
+    W = torch.from_numpy(W_np).to(DEV)
+    kw = dict(maxiter=200, tol=0.0, kernel_precision="mixed")
+    launches = collections.Counter()
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        launches.update(counts)
+        return out, counts
+
+    z, n_cfg = counted(lambda: config_for("ista", **kw).encode(x, W, ALPHA))
+    want, n_se = counted(lambda: sparse_encode(x, W, ALPHA, **kw))
+    check(torch.equal(z, want) and n_cfg == n_se,
+          "config_for('ista').encode equals sparse_encode with the same "
+          "launches")
+    with tempfile.TemporaryDirectory() as tmp:
+        with capture_trace(tmp):
+            with trace("encode"):
+                counted(lambda: sparse_encode(x, W, ALPHA, **kw))
+        files = os.listdir(tmp)
+        check(len(files) == 1, f"one trace file: {files}")
+        text = open(os.path.join(tmp, files[0])).read()
+    events = json.loads(text)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted(n for n in names if "fista_resid" in n
+                     or "fista_grad_prox" in n)
+    check("encode" in names and any("fista_resid" in n for n in kernels)
+          and any("fista_grad_prox" in n for n in kernels),
+          "the trace holds the region and the K1/K2 kernels")
+    lr = float(1.0 / lipschitz_constant(W))
+    secs, _ = time_solver(sparse_encode, x, W, ALPHA, lr=lr, maxiter=200,
+                          tol=0.0, kernel_precision="mixed",
+                          mixed_tail_iters=37)
+    _cuda.reset_launch_counts()
+    try:
+        with debug_nans():
+            torch.log(torch.full((), -1.0, device=DEV))
+        raised = False
+    except FloatingPointError:
+        raised = True
+    check(raised, "debug_nans raises FloatingPointError on log(-1)")
+    with debug_nans():
+        z, _ = counted(lambda: sparse_encode(x, W, ALPHA, **kw))
+    check(torch.equal(z, want), "a headline encode under debug_nans")
+    print(f"[20e] config encode equals sparse_encode; trace: "
+          f"{len(events)} events, the region and {len(kernels)} K1/K2 "
+          f"kernel names; time_solver of phase 2's encode "
+          f"{secs:.4f} s (phase 2 {RESULTS['headline_s']:.4f} s); "
+          f"debug_nans raised on log(-1) and not in an encode; card "
+          f"{card_line()}")
+    return launches
+
+
+def phase_last_modules(x_np, W_np):
+    """Phase 20; returns the K1/K2 launches of its main-path runs."""
+    X = phase_native()
+    launches = collections.Counter()
+    launches.update(phase_csr_serving())
+    launches.update(phase_export(x_np, W_np))
+    launches.update(phase_resumable(X))
+    launches.update(phase_configs_profiling(x_np, W_np))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4231,6 +4634,19 @@ def main():
         if row["name"] in launched and "shape" not in row:
             row["launches"] += launched[row["name"]]
     print(f"[19] phase time {time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    counts = phase_last_modules(*headline_problem())
+    # phase 20's launches go to the K1/K2 rows at the headline
+    launched = {row["name"]: counts.get(row["name"], 0) for row in rows
+                if "shape" not in row and counts.get(row["name"], 0)}
+    print(f"[20] launches: {json.dumps(launched)}")
+    check(all(launched.get(f"{k}_{kp}", 0) > 0
+              for k in ("fista_resid", "fista_grad_prox")
+              for kp in ("f32", "bf16")), "phase 20 launched K1/K2")
+    for row in rows:
+        if row["name"] in launched and "shape" not in row:
+            row["launches"] += launched[row["name"]]
+    print(f"[20] phase time {time.perf_counter() - t20:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)

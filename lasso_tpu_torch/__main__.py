@@ -5,6 +5,7 @@ Counterpart of the JAX package's ``__main__.py``. Runs on ``--device`` (default
 Examples:
 
     python -m lasso_tpu_torch encode X.npy W.npy --alpha 0.2 -o Z.npy
+    python -m lasso_tpu_torch encode X.npy W.npy --csr -o Z    # Z.{values,cols,row_ptr}.npy
     python -m lasso_tpu_torch train X.npy --atoms 256 --steps 30 -o W.npy
     python -m lasso_tpu_torch train X.npy --atoms 1024 --alpha 0.1 \
         --solver-args '{"algorithm": "cd"}'
@@ -13,8 +14,7 @@ Examples:
 ``train`` passes ``maxiter=100, tol=0.0`` to the E-step solver unless
 ``--solver-args`` sets them, as the JAX package's CLI does; so
 ``{"algorithm": "cd-mod"}`` raises ``TypeError`` there as here (its
-solver takes ``max_iter``). ``encode --csr`` is not ported yet and
-raises.
+solver takes ``max_iter``).
 """
 
 from __future__ import annotations
@@ -34,9 +34,21 @@ def _cmd_encode(args):
                           args.device)["weight"]
     solver_kw = json.loads(args.solver_args) if args.solver_args else {}
     t0 = time.time()
+    if args.csr:
+        values, cols, row_ptr = chunked_encode(
+            x, W, alpha=args.alpha, chunk_size=args.chunk_size,
+            algorithm=args.algorithm, output="csr", **solver_kw)
+        stem = args.out.removesuffix(".npy")
+        np.save(stem + ".values.npy", values)
+        np.save(stem + ".cols.npy", cols)
+        np.save(stem + ".row_ptr.npy", row_ptr)
+        nnz = int(row_ptr[-1])
+        print(f"encoded {x.shape[0]} samples in {time.time()-t0:.2f}s -> "
+              f"{stem}.{{values,cols,row_ptr}}.npy "
+              f"({1 - nnz / (x.shape[0] * W.shape[1]):.1%} sparse)")
+        return
     z = chunked_encode(x, W, alpha=args.alpha, chunk_size=args.chunk_size,
-                       algorithm=args.algorithm,
-                       output="csr" if args.csr else "dense", **solver_kw)
+                       algorithm=args.algorithm, **solver_kw)
     np.save(args.out, z)
     sparsity = float((np.abs(z) < 1e-6).mean())
     print(f"encoded {x.shape[0]} samples in {time.time()-t0:.2f}s -> "
@@ -84,7 +96,8 @@ def main(argv=None):
     pe.add_argument("--algorithm", default="ista")
     pe.add_argument("--chunk-size", type=int, default=65536)
     pe.add_argument("--csr", action="store_true",
-                    help="write packed CSR (not ported yet)")
+                    help="write packed CSR: <out stem>.values.npy, "
+                         ".cols.npy and .row_ptr.npy")
     pe.add_argument("--solver-args", default=None,
                     help='extra solver kwargs as JSON, e.g. '
                          '\'{"maxiter": 500, "tol": 1e-8}\'')

@@ -202,6 +202,18 @@ def dict_learning(X, n_components, alpha=1.0, constrained=True,
         raise ValueError("positive=True requires constrained=True (the "
                          "ridge M-step has no nonnegativity projection)")
     generator = _generator(generator, X.device)
+    weight, step_atoms = _em_draws(X, n_components, steps, generator,
+                                   constrained, dict_update)
+    return _dict_learning(X, weight, step_atoms, alpha, constrained,
+                          persist, lambd, steps, algorithm, dict_update,
+                          block_lambd, positive, progbar, **solver_kwargs)
+
+
+def _em_draws(X, n_components, steps, generator, constrained, dict_update):
+    """The random draws of :func:`dict_learning`, in its order: the
+    initial dictionary ``[D, K]``, then (constrained only, else None) the
+    replacement atoms of every step, ``[steps, K, D]`` for the sequential
+    M-step or ``[steps, D, K]`` for the block one."""
     weight = _orthogonal_init(X.shape[1], n_components, generator, X,
                               constrained)
     step_atoms = None
@@ -209,22 +221,27 @@ def dict_learning(X, n_components, alpha=1.0, constrained=True,
         shape = ((n_components, X.shape[1]) if dict_update == "sequential"
                  else (X.shape[1], n_components))
         step_atoms = _randn((steps,) + shape, generator, X)
-    return _dict_learning(X, weight, step_atoms, alpha, constrained,
-                          persist, lambd, steps, algorithm, dict_update,
-                          block_lambd, positive, progbar, **solver_kwargs)
+    return weight, step_atoms
 
 
 def _dict_learning(X, weight, step_atoms, alpha=1.0, constrained=True,
                    persist=False, lambd=1e-2, steps=60, algorithm="ista",
                    dict_update="sequential", block_lambd=1e-6,
-                   positive=False, progbar=False, **solver_kwargs):
+                   positive=False, progbar=False, start=0, Z0=None,
+                   return_codes=False, **solver_kwargs):
     """The EM loop of :func:`dict_learning` from the initial dictionary
     ``weight`` ``[D, K]`` and the replacement atoms of each step
     (``step_atoms[s]``: ``[K, D]`` for the sequential M-step, ``[D, K]``
-    for the block one; unused when unconstrained)."""
-    Z0 = None
+    for the block one; unused when unconstrained).
+
+    It runs steps ``start`` to ``steps - 1``, warm-started (with
+    ``persist``) from ``Z0``, the codes the step before ``start`` left
+    (None before step 0). With ``return_codes`` it returns ``(weight, Z,
+    losses)``, ``Z`` the codes the last step left, so that a run can go on
+    in segments (:func:`lasso_tpu_torch.utils.dict_learning_resumable`).
+    """
     losses = []
-    for s in range(steps):
+    for s in range(start, steps):
         Z = sparse_encode(X, weight, alpha, z0=Z0 if persist else None,
                           algorithm=algorithm, **solver_kwargs)
         loss = lasso_loss(X, Z, weight, alpha)
@@ -239,7 +256,8 @@ def _dict_learning(X, weight, step_atoms, alpha=1.0, constrained=True,
         else:
             weight = update_dict_ridge(X, Z, lambd=lambd)
         Z0 = Z
-    return weight, torch.stack(losses) if losses else X.new_zeros((0,))
+    losses = torch.stack(losses) if losses else X.new_zeros((0,))
+    return (weight, Z0, losses) if return_codes else (weight, losses)
 
 
 def update_dict_online(dictionary, A, B, sweeps=1, positive=False,

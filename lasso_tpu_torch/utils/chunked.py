@@ -1,12 +1,18 @@
 """Chunked encoding: stream batches larger than device memory.
 
-Counterpart of the JAX package's ``utils/chunked.py``, dense output. Per-sample
-solves are independent, so a big batch streams through the device in
-fixed-size chunks and the codes are gathered into host memory. Chunk
-i+1 is dispatched before chunk i is copied back to the host.
+Counterpart of the JAX package's ``utils/chunked.py``. Per-sample solves are
+independent, so a big batch streams through the device in fixed-size
+chunks and the codes are gathered into host memory, dense or packed as
+CSR by the native packer. Each chunk lands (its copy to the host, then
+its packing or its store) on one worker thread while the next chunk is
+dispatched, so that landing one chunk overlaps solving the next, also
+where the solver reads to the host as it runs. At most two chunks are in
+flight.
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -26,6 +32,13 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
     Returns a host numpy array [N, K] in x's dtype, or fills ``out``
     (any preallocated array-like).
 
+    ``output='csr'`` instead returns ``(values float32, cols int32,
+    row_ptr int64)``, each chunk's codes packed on the host by
+    :func:`lasso_tpu_torch.native.pack_codes_csr` (entries with ``|z| <=
+    csr_eps`` dropped) as they land, so the dense ``[N, K]`` matrix never
+    materializes on the host; an empty batch gives ``([], [], [0])``.
+    ``out`` applies to dense output only (ValueError with ``'csr'``).
+
     The last chunk is zero-padded to ``chunk_size`` so every chunk has the
     same shape; padding rows solve the zero problem and are discarded. A
     per-sample alpha is sliced per chunk (padding rows get alpha 1); a
@@ -44,23 +57,24 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
     H_z, W_z]`` from the conv geometry; ``stride``/``padding`` and the other
     keywords go to :func:`lasso_tpu_torch.conv2d.ista_conv2d`. Dense output
     only: with ``output='csr'`` or ``screen=True`` it raises ValueError.
-
-    ``output='csr'`` (``csr_eps``) is not ported yet and raises.
     """
     from lasso_tpu_torch.linear.screening import screened_encode
     from lasso_tpu_torch.linear.sparse_encode import sparse_encode
+    from lasso_tpu_torch.native import pack_codes_csr
 
     if output not in ("dense", "csr"):
         raise ValueError(f"output must be 'dense' or 'csr', got {output!r}")
+    csr = output == "csr"
+    if out is not None and csr:
+        raise ValueError(
+            "a preallocated `out` buffer applies only to output='dense'; "
+            "the CSR path returns freshly packed (values, cols, row_ptr) "
+            "arrays whose sizes are data-dependent")
     conv = algorithm == "ista_conv2d"
     if conv and (output != "dense" or screen):
         raise ValueError("ista_conv2d supports only output='dense' without "
                          "screening (the CSR packer and gap-safe screening "
                          "are 2-D code paths)")
-    if output == "csr":
-        raise NotImplementedError(
-            "output='csr' needs the native CSR packer, which is not ported "
-            "yet (ROADMAP A item 13b)")
     if device is None:
         device = weight.device if torch.is_tensor(weight) else "cuda"
     device = resolve_device(device)
@@ -80,9 +94,14 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
                       (x.shape[3] + 2 * pw - kw) // sw + 1)
     else:
         code_shape = (weight.shape[1],)
-    if out is None:
+    if csr:
+        vals_parts, cols_parts, nnz_rows = [], [], []
+    elif out is None:
         out = np.empty((N,) + code_shape, dtype=out_dtype)
     if N == 0:
+        if csr:
+            return (np.empty(0, np.float32), np.empty(0, np.int32),
+                    np.zeros(1, np.int64))
         return out
     chunk_size = min(chunk_size, N)
     if conv:
@@ -134,14 +153,28 @@ def chunked_encode(x, weight, alpha=1.0, chunk_size=65536, algorithm="ista",
         return (zb[0] if isinstance(zb, tuple) else zb), start, stop
 
     def land(zb, start, stop):
-        out[start:stop] = zb[: stop - start].cpu().numpy()
+        zb = zb[: stop - start].cpu().numpy()
+        if csr:
+            v, c, rp = pack_codes_csr(zb, eps=csr_eps)
+            vals_parts.append(v)
+            cols_parts.append(c)
+            nnz_rows.append(np.diff(rp))
+        else:
+            out[start:stop] = zb
 
-    # one-deep pipeline: dispatch chunk i+1 before copying chunk i back
-    pending = None
-    for start in range(0, N, chunk_size):
-        nxt = dispatch(start)
-        if pending is not None:
-            land(*pending)
-        pending = nxt
-    land(*pending)
+    # one-deep pipeline: chunk i lands on the worker while chunk i+1 is
+    # dispatched; chunk i+2 waits for chunk i to have landed
+    with ThreadPoolExecutor(max_workers=1) as worker:
+        landing = None
+        for start in range(0, N, chunk_size):
+            nxt = dispatch(start)
+            if landing is not None:
+                landing.result()
+            landing = worker.submit(land, *nxt)
+        landing.result()
+    if csr:
+        row_ptr = np.zeros(N + 1, np.int64)
+        np.cumsum(np.concatenate(nnz_rows), out=row_ptr[1:])
+        return (np.concatenate(vals_parts), np.concatenate(cols_parts),
+                row_ptr)
     return out

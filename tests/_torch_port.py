@@ -32,8 +32,9 @@ def one_torch_thread():
     """Run a module's port code on one intra-op thread. Its loops run
     thousands of tiny operations, and under pytest-xdist six workers of
     one thread per core each spin their OpenMP teams against each other
-    (on an 8-core machine the two files that use this fixture took 268 s
-    on six workers with PyTorch's default threads and 30 s with one). The
+    (on an 8-core machine the first two files that used this fixture took
+    268 s on six workers with PyTorch's default threads and 30 s with
+    one). The
     worker's setting comes back after the module."""
     n_threads = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -22,7 +22,7 @@ from lasso_tpu.utils import chunked_encode as j_chunked
 from lasso_tpu_torch.conv2d import conv_lasso_loss, ista_conv2d
 from lasso_tpu_torch.utils import chunked_encode, from_numpy_params
 
-from _torch_port import n, t
+from _torch_port import n, one_torch_thread, t  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

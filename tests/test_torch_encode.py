@@ -17,6 +17,7 @@ from lasso_tpu.utils import chunked_encode as j_chunked
 from lasso_tpu_torch import headline_bench
 from lasso_tpu_torch.__main__ import main as cli
 from lasso_tpu_torch.linear import initialize_code, sparse_encode
+from lasso_tpu_torch.native import unpack_codes_csr
 from lasso_tpu_torch.utils import chunked_encode, from_numpy_params
 
 from _torch_port import make_problem, n, objective, t
@@ -146,8 +147,12 @@ def test_chunked_encode_options(rng):
     assert chunked_encode(x[:0], W, device="cpu").shape == (0, 128)
     with pytest.raises(ValueError):
         chunked_encode(x, W, output="coo", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chunked_encode(x, W, device="cpu", output="csr")
+    # CSR output: the dense codes, packed; no preallocated buffer
+    v, c, rp = chunked_encode(x, W, 0.1, device="cpu", output="csr", lr=0.1)
+    dense = chunked_encode(x, W, 0.1, device="cpu", lr=0.1)
+    np.testing.assert_array_equal(unpack_codes_csr(v, c, rp, 128), dense)
+    with pytest.raises(ValueError):
+        chunked_encode(x, W, device="cpu", output="csr", out=out)
     # conv streams dense codes only, as in the JAX package
     xc = rng.standard_normal((4, 1, 8, 8)).astype(np.float32)
     Wc = rng.standard_normal((4, 1, 3, 3)).astype(np.float32)
@@ -189,9 +194,13 @@ def test_cli_encode(rng, tmp_path, capsys, monkeypatch):
         np.testing.assert_allclose(
             zg[i:i + 16], n(sparse_encode(t(x[i:i + 16]), t(W), 0.2,
                                           algorithm="gpsr")), atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        cli(["encode", str(tmp_path / "X.npy"), str(tmp_path / "W.npy"),
-             "--csr", "--device", "cpu"])
+    # --csr writes the first encode's codes, packed
+    cli(["encode", str(tmp_path / "X.npy"), str(tmp_path / "W.npy"),
+         "-o", str(tmp_path / "C.npy"), "--alpha", "0.2", "--chunk-size",
+         "16", "--solver-args", solver, "--csr", "--device", "cpu"])
+    parts = [np.load(tmp_path / f"C.{p}.npy")
+             for p in ("values", "cols", "row_ptr")]
+    np.testing.assert_array_equal(unpack_codes_csr(*parts, 256), z)
     # train runs on the card unless asked for the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

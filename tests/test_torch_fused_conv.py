@@ -30,7 +30,7 @@ from lasso_tpu.ops.shrink import soft_threshold_nonneg as j_soft_nonneg
 from lasso_tpu_torch.ops import _cuda
 from lasso_tpu_torch.ops import fused_conv as TC
 
-from _torch_port import n, t
+from _torch_port import n, one_torch_thread, t  # noqa: F401
 
 LR = 0.04
 

@@ -395,3 +395,53 @@ def test_data_parallel_encode_one_nccl_rank_is_sparse_encode():
     names = [f"{k}_{kp}" for k in ("fista_resid", "fista_grad_prox")
              for kp in ("bf16", "f32")]
     assert all(counts[n] == single[n] > 0 for n in names)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kernel_precision="mixed", tol=1e-5, lr="auto"),
+    dict(kernel_precision="mixed", tol=1e-2, lr="auto"),
+    dict(kernel_precision="f32", tol=1e-2, lr=0.1, restart=True),
+], ids=["mixed_auto", "mixed_auto_stop", "f32_stop_restart"])
+def test_exported_encoder_on_card_is_sparse_encode(kw):
+    """The loaded encoder on CUDA inputs: the codes, iteration count and
+    K1/K2 launches of sparse_encode bit for bit at two batch sizes of one
+    export (the second off the 8-row grid)."""
+    _need_card()
+    from lasso_tpu_torch.linear import sparse_encode
+    from lasso_tpu_torch.utils import export_encoder, load_encoder
+    rng = np.random.default_rng(0)
+    W = t((rng.standard_normal((100, 300)) / 10).astype(np.float32)).cuda()
+    kw = dict(maxiter=64, fuse_steps=16, **kw)
+    call = load_encoder(export_encoder(W, alpha=0.1, return_iters=True,
+                                       **kw))
+    for rows in (256, 203):
+        x = t(rng.standard_normal((rows, 100)).astype(np.float32)).cuda()
+        runs = []
+        for fn in (lambda: call(x, W),
+                   lambda: sparse_encode(x, W, 0.1, return_iters=True,
+                                         **kw)):
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            z, k = fn()
+            torch.cuda.synchronize()
+            counts = {name: v for name, v in _cuda.launch_counts().items()
+                      if name.startswith("fista_") and v}
+            runs.append((z, int(k), counts))
+        (z, k, counts), (want, k_want, counts_want) = runs
+        assert torch.equal(z, want) and k == k_want
+        assert counts == counts_want and counts_want
+
+
+def test_csr_round_trip_of_card_codes():
+    """pack_codes_csr of CUDA codes copies them to the host; unpacked they
+    are the codes."""
+    _need_card()
+    from lasso_tpu_torch.native import pack_codes_csr, unpack_codes_csr
+    rng = np.random.default_rng(1)
+    x, _, _, W = (t(a).cuda() for a in make_problem(rng, 64, 128, 256))
+    z = ista(x, torch.zeros(64, 256, device="cuda"), W, 0.5, lr=0.5,
+             maxiter=40, tol=0.0)
+    values, cols, row_ptr = pack_codes_csr(z, eps=0.0)
+    assert row_ptr[-1] == int(torch.count_nonzero(z)) > 0
+    np.testing.assert_array_equal(unpack_codes_csr(values, cols, row_ptr,
+                                                   256), n(z))

@@ -26,7 +26,7 @@ from lasso_tpu_torch.linear.solvers import (group_ista, group_lasso_objective,
                                             resolve_groups)
 from lasso_tpu_torch.utils import chunked_encode, from_numpy_params
 
-from _torch_port import n, t
+from _torch_port import n, one_torch_thread, t  # noqa: F401
 from _torch_port import release_jax_after_module  # noqa: F401
 
 tdl = importlib.import_module("lasso_tpu_torch.linear.dict_learning")

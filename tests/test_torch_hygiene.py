@@ -4,12 +4,16 @@ chip_smoke.py imports neither either."""
 
 import ast
 import importlib
+import inspect
+import json
 import pathlib
 import re
 import subprocess
 import sys
+import textwrap
 
 import pytest
+import torch
 
 from lasso_tpu_torch.ops import _cuda
 
@@ -40,8 +44,8 @@ def test_import_leaves_jax_out():
 
 def test_sources_name_neither_jax_nor_the_jax_package():
     files = [p for p in PORT.rglob("*")
-             if p.suffix in (".py", ".cu", ".cuh")]
-    assert any(p.suffix == ".cu" for p in files)
+             if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
+    assert {".cu", ".cpp"} <= {p.suffix for p in files}
     hits = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
             for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)
@@ -52,7 +56,9 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 def test_failed_library_load_raises(monkeypatch):
     """With the loader patched to fail, every CUDA launch entry raises;
     none returns the plain version, and the kernel modules hold no
-    try/except that could turn a failure into one."""
+    try/except that could turn a failure into one. The exported encoder's
+    operator calls sparse_encode, and an exported program reaches no
+    plain version but through it."""
     def fail(name):
         raise RuntimeError(f"cannot build {name}")
 
@@ -78,7 +84,24 @@ def test_failed_library_load_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="cannot build"):
             k(*([0] * len(k.argtypes)))
         assert k.launches == before
-    for mod in (fused, cd, group, omp, chol, basic, conv, conv_ista, _cuda):
+    # the exported encoder's operator is sparse_encode, whose ista reaches
+    # the kernels through the wrappers above (launching K1/K2 or raising
+    # on a CUDA tensor); neither it nor its program calls a plain version
+    export = importlib.import_module("lasso_tpu_torch.utils.export")
+    called = {node.func.id for node in ast.walk(ast.parse(
+        textwrap.dedent(inspect.getsource(export.ista_encode._init_fn))))
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)}
+    assert "sparse_encode" in called
+    assert not any(name.endswith("_plain") for name in called)
+    program = export._Encoder(0.1, None, json.dumps({"lr": 0.1}), False)
+    graph = torch.export.export(program, (torch.zeros(8, 16),
+                                          torch.zeros(16, 8))).graph
+    targets = [str(node.target) for node in graph.nodes
+               if node.op == "call_function"]
+    assert targets.count("lasso_tpu_torch.ista_encode.default") == 1
+    assert not any("plain" in name for name in targets)
+    for mod in (fused, cd, group, omp, chol, basic, conv, conv_ista, _cuda,
+                export):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not any(isinstance(node, ast.Try) for node in ast.walk(tree))
 
